@@ -1,0 +1,386 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py          # from the repository root, on a CUDA machine
+
+Phases, each printing its own lines; any failure raises and exits nonzero:
+  1. the card's name and power limit, as nvidia-smi reports them;
+  2. the kernels' build from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
+  3. every kernel held against its plain PyTorch version on the card with
+     torch.equal, over the shapes of the JAX package's kernel tests and the
+     served models' shapes;
+  4. the serving path through ``repro_torch.launch.serve.main`` on CUDA:
+     deepsets-32 fused, jsc-m fused and jsc-m unfused, each with the launch
+     counts set to 0 just before and read just after; every served output
+     must equal the plain version computed on the CPU;
+  5. each kernel timed at the served shapes (a batch of 64 events), beside
+     its bound on this card, its plain version and, for mm_int8, the
+     ``torch._int_mm`` library call.
+It then prints the ``kernels`` JSON line and, last, the device JSON line.
+
+It exits nonzero, with no result, where CUDA is absent or where the rest of
+the repository is not beside it. It imports nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import itertools
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+BATCH = 64
+SEED = 0
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True, text=True,
+        timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+# -- inputs --------------------------------------------------------------------
+
+def _rand_int8(rng, shape, device, lo=-128, hi=128):
+    import torch
+    return torch.from_numpy(rng.integers(lo, hi, shape).astype("int8")).to(device)
+
+
+def _random_qmlp(rng, dims, m):
+    """A quantized MLP with random float weights, calibrated on random input
+    (ReLU between layers, none after the last)."""
+    from repro_torch.quant import quantize_mlp
+    ws = [rng.normal(0, 0.4, (dims[i], dims[i + 1])) for i in range(len(dims) - 1)]
+    bs = [rng.normal(0, 0.1, (d,)) for d in dims[1:]]
+    relus = [True] * (len(ws) - 1) + [False]
+    return quantize_mlp(ws, bs, relus, rng.normal(0, 1, (m, dims[0])))
+
+
+def _random_deepsets(rng, f, phi_nodes, rho_nodes, m):
+    import numpy as np
+    from repro_torch.quant import quantize_mlp
+    dims = [f] + list(phi_nodes)
+    pw = [rng.normal(0, 0.4, (dims[i], dims[i + 1])) for i in range(len(dims) - 1)]
+    pb = [rng.normal(0, 0.1, (d,)) for d in dims[1:]]
+    xs = rng.normal(0, 1, (m, f))
+    phi = quantize_mlp(pw, pb, [True] * len(pw), xs)
+    h = xs
+    for w, b in zip(pw, pb):
+        h = np.maximum(h @ w + b, 0)
+    rdims = [dims[-1]] + list(rho_nodes)
+    rw = [rng.normal(0, 0.3, (rdims[i], rdims[i + 1])) for i in range(len(rdims) - 1)]
+    rb = [rng.normal(0, 0.1, (d,)) for d in rdims[1:]]
+    rho = quantize_mlp(rw, rb, [True] * (len(rw) - 1) + [False],
+                       h.mean(0, keepdims=True))
+    return phi, rho
+
+
+# -- phase 3: kernels against their plain versions -------------------------------
+
+def _diff(a, b) -> float:
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
+                             f"{tuple(b.shape)} {b.dtype}")
+    if torch.equal(a, b):
+        return 0.0
+    err = float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    raise AssertionError(f"kernel differs from its plain version, max |err| "
+                         f"{err}")
+
+
+def check_kernels(dev) -> dict:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.cascade_mlp import (cascade_mlp, cascade_mlp_ref,
+                                                 deepsets, deepsets_ref,
+                                                 mlp_unfused)
+    from repro_torch.kernels.mm_int8 import mm_int8, mm_int8_ref
+    err = {"mm_int8": 0.0, "cascade_mlp": 0.0, "deepsets": 0.0}
+    n_cases = dict.fromkeys(err, 0)
+
+    rng = np.random.default_rng(SEED)
+    grid = itertools.product([1, 7, 8, 32, 64, 100, 128, 4096],
+                             [5, 16, 21, 32, 64, 130],
+                             [5, 10, 32, 64, 128, 200])
+    for i, (m, k, n) in enumerate(grid):
+        x, w = _rand_int8(rng, (m, k), dev), _rand_int8(rng, (k, n), dev)
+        b = (_rand_int8(rng, (n,), dev).to(torch.int32) * 40
+             if i % 2 == 0 else None)
+        kw = dict(shift=(0, 3, 7)[i % 3], relu=(i // 2) % 2 == 1)
+        for out_int8 in ((True, False) if i % 5 == 0 else (True,)):
+            err["mm_int8"] = max(err["mm_int8"], _diff(
+                mm_int8(x, w, b, out_int8=out_int8, **kw),
+                mm_int8_ref(x, w, b, out_int8=out_int8, **kw)))
+            n_cases["mm_int8"] += 1
+    sat = mm_int8(torch.full((8, 128), 127, dtype=torch.int8, device=dev),
+                  torch.full((128, 8), 127, dtype=torch.int8, device=dev))
+    if int(sat.max()) != 127 or int(sat.min()) != 127:
+        raise AssertionError("mm_int8 does not saturate")
+
+    chains = [[16, 64, 32, 32, 32, 5], [16, 128, 64, 64, 64, 5]]
+    for depth in range(2, 7):
+        chains.append([int(rng.choice([16, 21, 32, 64]))]
+                      + [int(rng.choice([32, 64, 128])) for _ in range(depth - 1)]
+                      + [5])
+    for dims in chains:
+        q = _random_qmlp(rng, dims, 64).to(dev)
+        for rows in (1, 7, 64, 100, BATCH * 64):
+            x = _rand_int8(rng, (rows, dims[0]), dev)
+            want = cascade_mlp_ref(x, q)
+            err["cascade_mlp"] = max(err["cascade_mlp"],
+                                     _diff(cascade_mlp(x, q), want))
+            err["mm_int8"] = max(err["mm_int8"], _diff(mlp_unfused(x, q), want))
+            n_cases["cascade_mlp"] += 1
+
+    for f, nodes, m_full in ((21, ([32, 32, 32], [32, 10]), 32),
+                             (21, ([64, 64, 64], [64, 10]), 64)):
+        phi, rho = _random_deepsets(rng, f, *nodes, m_full)
+        phi, rho = phi.to(dev), rho.to(dev)
+        for m, agg in itertools.product((m_full, 7, 1), ("mean", "sum")):
+            x = _rand_int8(rng, (BATCH, m, f), dev, -40, 40)
+            mp = 1 << (m - 1).bit_length()
+            want = deepsets_ref(F.pad(x, (0, 0, 0, mp - m)), phi, rho, agg=agg)
+            err["deepsets"] = max(err["deepsets"],
+                                  _diff(deepsets(x, phi, rho, agg=agg), want))
+            n_cases["deepsets"] += 1
+    for name in err:
+        print(f"[check] {name}: {n_cases[name]} cases equal to the plain "
+              f"version on the card (max |err| {err[name]})")
+    return err
+
+
+# -- phase 4: the serving path ---------------------------------------------------
+
+def drive_serving() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.cascade_mlp import cascade_mlp, deepsets
+    from repro_torch.launch import serve
+
+    runs = {}
+    for name, argv, kernel in (
+            ("deepsets-32 fused", ["--model", "deepsets-32", "--mode", "fused",
+                                   "--events", "256", "--train-steps", "100"],
+             "deepsets"),
+            ("jsc-m fused", ["--model", "jsc-m", "--mode", "fused",
+                             "--events", "128", "--train-steps", "100"],
+             "cascade_mlp"),
+            ("jsc-m unfused", ["--model", "jsc-m", "--mode", "unfused",
+                               "--events", "128", "--train-steps", "100"],
+             "mm_int8")):
+        launches.reset()
+        rep = serve.main(argv + ["--device", "cuda", "--seed", str(SEED)])
+        counts = launches.snapshot()
+        print(f"[serve] {name}: launches {counts}")
+        if counts.get(kernel, 0) == 0:
+            raise AssertionError(f"{name}: the {kernel} kernel never launched")
+        if rep["burst_max_batch"] < 2:
+            raise AssertionError(f"{name}: the burst was never batched")
+        q = rep["qmlp"].to("cpu")
+        xq = torch.from_numpy(rep["xq"])
+        if rep["rho"] is not None:
+            plain = deepsets(xq, q, rep["rho"].to("cpu"))
+        else:
+            b, m, f = xq.shape
+            plain = cascade_mlp(xq.reshape(b * m, f), q).reshape(b, m, -1)
+        if not np.array_equal(rep["outputs"], plain.numpy()):
+            raise AssertionError(f"{name}: served outputs differ from the "
+                                 "plain version on the CPU")
+        print(f"[serve] {name}: {len(rep['outputs'])} served outputs equal to "
+              f"the CPU plain version; p50 {rep['p50_us']:.1f} us, p99 "
+              f"{rep['p99_us']:.1f} us (p50 wait {rep['queue_wait_p50_us']:.1f} "
+              f"us = dequeue {rep['dequeue_p50_us']:.1f} us + window "
+              f"{rep['window_p50_us']:.1f} us, p50 service "
+              f"{rep['service_p50_us']:.1f} us), "
+              f"{rep['events_per_s']:.0f} events/s one at a time, "
+              f"{rep['burst_events_per_s']:.0f} events/s in a burst (largest "
+              f"batch {rep['burst_max_batch']})")
+        runs[name] = dict(rep, launches=counts)
+    f_out, u_out = runs["jsc-m fused"]["outputs"], runs["jsc-m unfused"]["outputs"]
+    if not np.array_equal(f_out, u_out):
+        raise AssertionError("jsc-m fused and unfused outputs differ")
+    print("[serve] jsc-m fused and unfused outputs are equal")
+    return runs
+
+
+# -- phase 5: timing -------------------------------------------------------------
+
+def _time_ms(fn, iters: int = 200) -> dict:
+    """Per-call time of ``fn``: eager (CUDA events around back-to-back calls,
+    so host overhead shows when it exceeds the device time) and device
+    (the same calls captured once in a CUDA graph and replayed)."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    eager = start.elapsed_time(end) / iters
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(iters):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return {"ms": start.elapsed_time(end) / iters, "eager_ms": eager}
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def _chain_work(q, rows: int):
+    """Bytes of weights+biases and int8 ops of one chain over ``rows`` rows."""
+    wb = sum(l.w_q.numel() + (4 * l.bias_q.numel() if l.bias_q is not None else 0)
+             for l in q.layers)
+    ops = sum(2 * rows * l.w_q.shape[0] * l.w_q.shape[1] for l in q.layers)
+    return wb, ops
+
+
+def time_kernels(dev, runs: dict, err: dict) -> list:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.cascade_mlp import (cascade_mlp, cascade_mlp_ref,
+                                                 deepsets, deepsets_ref)
+    from repro_torch.kernels.mm_int8 import mm_int8, mm_int8_ref
+
+    rng = np.random.default_rng(SEED + 1)
+    out = []
+
+    # K1: the per-layer launches of one served jsc-m batch (B*M rows).
+    q = runs["jsc-m unfused"]["qmlp"].to(dev)
+    rows = BATCH * 64
+    a = torch.from_numpy(runs["jsc-m unfused"]["xq"][:BATCH].reshape(rows, -1)).to(dev)
+    layers = []
+    for l in q.layers:
+        layers.append((a, l))
+        a = mm_int8_ref(a, l.w_q, l.bias_q, shift=l.shift, relu=l.relu)
+    t = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    nbytes = ops = 0
+    for x, l in layers:
+        k, n = l.w_q.shape
+        kt = _time_ms(lambda: mm_int8(x, l.w_q, l.bias_q, shift=l.shift, relu=l.relu))
+        pt = _time_ms(lambda: mm_int8_ref(x, l.w_q, l.bias_q, shift=l.shift,
+                                          relu=l.relu))
+        # torch._int_mm takes K and N in multiples of 8: pad (zeros are exact).
+        k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
+        xp = F.pad(x, (0, k8 - k)).contiguous()
+        wp = F.pad(l.w_q, (0, n8 - n, 0, k8 - k)).contiguous()
+        lt = _time_ms(lambda: torch._int_mm(xp, wp))
+        t["ms"] += kt["ms"]
+        t["eager_ms"] += kt["eager_ms"]
+        t["plain_ms"] += pt["ms"]
+        t["library_ms"] += lt["ms"]
+        nbytes += rows * k + k * n + 4 * n + rows * n
+        ops += 2 * rows * k * n
+    out.append(dict(name="mm_int8", route="cuda",
+                    source="src/repro_torch/kernels/csrc/mm_int8.cu",
+                    replaces="src/repro/kernels/mm_int8/mm_int8.py:60",
+                    launches=runs["jsc-m unfused"]["launches"].get("mm_int8", 0),
+                    max_abs_err=err["mm_int8"], **t, **_bound(nbytes, ops),
+                    shape=f"jsc-m, {len(layers)} layers x {rows} rows"))
+
+    # K2: one served jsc-m batch.
+    q = runs["jsc-m fused"]["qmlp"].to(dev)
+    x = torch.from_numpy(runs["jsc-m fused"]["xq"][:BATCH].reshape(rows, -1)).to(dev)
+    kt = _time_ms(lambda: cascade_mlp(x, q))
+    pt = _time_ms(lambda: cascade_mlp_ref(x, q))
+    wb, ops = _chain_work(q, rows)
+    n_out = q.layers[-1].w_q.shape[1]
+    out.append(dict(name="cascade_mlp", route="cuda",
+                    source="src/repro_torch/kernels/csrc/cascade_mlp.cu",
+                    replaces="src/repro/kernels/cascade_mlp/cascade_mlp.py:74",
+                    launches=runs["jsc-m fused"]["launches"].get("cascade_mlp", 0),
+                    max_abs_err=err["cascade_mlp"], ms=kt["ms"],
+                    eager_ms=kt["eager_ms"], plain_ms=pt["ms"], library_ms=None,
+                    **_bound(x.numel() + wb + rows * n_out, ops),
+                    shape=f"jsc-m, {rows} rows"))
+
+    # K3: one served deepsets-32 batch of 64 events.
+    run = runs["deepsets-32 fused"]
+    phi, rho = run["qmlp"].to(dev), run["rho"].to(dev)
+    x = torch.from_numpy(run["xq"][:BATCH]).to(dev)
+    b, m, f = x.shape
+    kt = _time_ms(lambda: deepsets(x, phi, rho))
+    pt = _time_ms(lambda: deepsets_ref(x, phi, rho))
+    wb_phi, ops_phi = _chain_work(phi, b * m)
+    wb_rho, ops_rho = _chain_work(rho, b)
+    n_h, n_out = phi.layers[-1].w_q.shape[1], rho.layers[-1].w_q.shape[1]
+    out.append(dict(name="deepsets", route="cuda",
+                    source="src/repro_torch/kernels/csrc/cascade_mlp.cu",
+                    replaces="src/repro/kernels/cascade_mlp/cascade_mlp.py:117",
+                    launches=run["launches"].get("deepsets", 0),
+                    max_abs_err=err["deepsets"], ms=kt["ms"],
+                    eager_ms=kt["eager_ms"], plain_ms=pt["ms"], library_ms=None,
+                    **_bound(x.numel() + wb_phi + wb_rho + b * n_out,
+                             ops_phi + ops_rho + b * m * n_h),
+                    shape=f"deepsets-32, {b} events x {m} x {f}"))
+    for k in out:
+        print(f"[time] {k['name']} ({k['shape']}): kernel_ms {k['ms']:.6f} "
+              f"(eager {k['eager_ms']:.6f}), plain_ms {k['plain_ms']:.6f}, "
+              f"bound_ms {k['bound_ms']:.9f} ({k['bound_by']}), library_ms "
+              f"{k['library_ms']}")
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    torch.manual_seed(SEED)
+    print(_card_line())
+    print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"({_build.BUILD_ROOT / _build.source_hash()})")
+
+    err = check_kernels(dev)
+    runs = drive_serving()
+    kernels = time_kernels(dev, runs, err)
+
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``) on the serving path.
+
+* ``mm_int8``      — one INT8 layer with the fused bias/ReLU/requant epilogue
+                     (the per-layer baseline); replaces ``mm_int8_pallas``
+* ``cascade_mlp``  — the whole INT8 layer chain in one launch with weights
+                     resident in shared memory (``cascade_mlp``, K2), the
+                     fused DeepSets (``deepsets``, K3), and the per-layer
+                     chain of K1 launches (``mlp_unfused``)
+
+Each kernel has ``ops.py`` (the wrapper: checks, dispatch, launch count) and
+``ref.py`` (its plain PyTorch version). The CUDA sources are in ``csrc/``
+and are built by ``_build`` at first use. A CPU tensor runs the plain
+version; a CUDA tensor launches the kernel or raises.
+"""
+from . import cascade_mlp, mm_int8
+from ._build import launches
+
+__all__ = ["mm_int8", "cascade_mlp", "launches"]

@@ -1,0 +1,186 @@
+"""Build, load and count the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` at first
+use: one object per ``.cu`` file, each in its own ``nvcc`` process and all
+started together (so the build takes as long as its slowest source, however
+many kernels are added), then linked into one shared library with a plain C
+interface that ``ctypes`` loads. The library is
+keyed by a hash of the sources and flags and kept under ``build/repro_torch/``
+at the repository root, so a second process reuses it. A failed build raises
+with nvcc's output; nothing falls back.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on a nonzero code. ``launches`` counts, per kernel, the
+launches its wrapper made.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+LIB_NAME = "librepro_torch_kernels.so"
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# name -> argtypes; every pointer and the stream are c_void_p.
+_SIGNATURES = {
+    # x, w, bias, out, m, k, n, shift, relu, out_int8, stream
+    "mm_int8_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, b, meta, out, rows, k0, block_rows, stride, smem_bytes, stream
+    "cascade_mlp_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, phi_w, phi_b, phi_meta, rho_w, rho_b, rho_meta, out,
+    # batch, m, mp, k0, agg_shift, stride, smem_bytes, stream
+    "deepsets_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+# Shared memory one block may use on sm_90 (227 KB).
+MAX_SMEM_BYTES = 232448
+
+
+class LaunchCounts:
+    """Launches per kernel, counted by the wrappers where they launch."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n: Dict[str, int] = {}
+
+    def add(self, name: str) -> None:
+        with self._lock:
+            self._n[name] = self._n.get(name, 0) + 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n.clear()
+
+    def get(self, name: str) -> int:
+        with self._lock:
+            return self._n.get(name, 0)
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._n)
+
+
+launches = LaunchCounts()
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cus, headers = _sources()
+    for p in cus + headers:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin); the CUDA "
+                           "kernels build only where the CUDA toolkit is")
+    return path
+
+
+def _run_all(cmds):
+    """Runs the commands at once; raises with the stderr of any that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    logs, failed = [], []
+    for cmd, p in zip(cmds, procs):
+        out, err = p.communicate()
+        logs.append(f"$ {' '.join(cmd)}\n{out}{err}")
+        if p.returncode != 0:
+            failed.append(f"$ {' '.join(cmd)}\n{err}{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return logs
+
+
+def build() -> Path:
+    """Compiles csrc/ into the shared library unless it is built already."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cus, _ = _sources()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in cus]
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas=-v", "-c", str(p),
+                          "-o", o] for p, o in zip(cus, objs)])
+        logs += _run_all([[nvcc, *NVCC_FLAGS, "-shared", *objs, "-o",
+                           os.path.join(tmp, LIB_NAME)]])
+        (out_dir / "build.log").write_text("\n".join(logs))
+        os.replace(os.path.join(tmp, LIB_NAME), lib_path)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("the CUDA kernels need a CUDA device")
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s device in the calling thread."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the plain versions run), False
+    when every one lies on one CUDA device (the kernel launches); raises on
+    anything else."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and "
+                             f"{t.device}")
+    if dev.type == "cpu":
+        return True
+    if dev.type == "cuda":
+        return False
+    raise ValueError(f"unsupported device {dev}: the kernels take CUDA "
+                     "tensors and the plain versions CPU tensors")
+
+
+def require_contiguous(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")

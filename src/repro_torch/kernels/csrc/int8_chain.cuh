@@ -1,0 +1,117 @@
+// Shared device code of the INT8 kernels: the power-of-two requantization and
+// one quantized dense layer over activations held in shared memory.
+//
+// Integer semantics follow the JAX package bit for bit: int8 x int8 products
+// accumulate in int32 (two's-complement wrap), the optional int32 bias is
+// added, ReLU clamps at 0, and the shift rounds half away from zero before
+// saturating to int8.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define REPRO_MAX_LAYERS 16
+#define REPRO_THREADS 256
+
+// One layer as the host packs it. The weight is stored transposed, w^T of
+// shape (n, ks) int8, with K zero-padded to ks bytes; ks / 4 is odd, so that
+// the threads of a warp, which read neighbouring output columns, read
+// distinct shared-memory banks.
+struct ChainLayer {
+  int k;         // input width
+  int kp;        // input width rounded up to 4: the bytes the dp4a loop reads
+  int ks;        // row stride of w^T in bytes
+  int n;         // output width
+  int np;        // output width rounded up to 4
+  int shift;     // requantization shift, 0..30
+  int relu;
+  int has_bias;
+  int w_off;     // byte offset of w^T in the packed weights (16-aligned)
+  int b_off;     // int32 offset of the bias in the packed biases
+};
+
+#define REPRO_LAYER_INTS 10
+#define REPRO_CHAIN_HEADER_INTS 3
+
+struct Chain {
+  int n_layers;
+  int w_bytes;   // packed weight bytes, a multiple of 16
+  int b_count;   // packed bias entries, a multiple of 4
+  ChainLayer layer[REPRO_MAX_LAYERS];
+};
+
+// Reads a chain from the host array the Python wrapper packs:
+// [n_layers, w_bytes, b_count, then REPRO_LAYER_INTS ints per layer].
+inline Chain chain_from_meta(const int* meta) {
+  Chain c;
+  c.n_layers = meta[0];
+  c.w_bytes = meta[1];
+  c.b_count = meta[2];
+  for (int l = 0; l < c.n_layers && l < REPRO_MAX_LAYERS; ++l) {
+    const int* m = meta + REPRO_CHAIN_HEADER_INTS + l * REPRO_LAYER_INTS;
+    c.layer[l] = ChainLayer{m[0], m[1], m[2], m[3], m[4],
+                            m[5], m[6], m[7], m[8], m[9]};
+  }
+  return c;
+}
+
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
+// sat8(round_half_away(acc >> shift)); CUDA's >> on int is arithmetic.
+__device__ __forceinline__ int8_t requant_sat8(int acc, int shift) {
+  if (shift > 0) {
+    const int half = 1 << (shift - 1);
+    acc = wrap_add(acc, acc >= 0 ? half : half - 1) >> shift;
+  }
+  return static_cast<int8_t>(min(max(acc, -128), 127));
+}
+
+// Copies `bytes` (a multiple of 16) from global to shared memory.
+__device__ __forceinline__ void copy16(void* dst, const void* src, int bytes) {
+  const int4* s = reinterpret_cast<const int4*>(src);
+  int4* d = reinterpret_cast<int4*>(dst);
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) d[i] = s[i];
+}
+
+// out[r, :np] = requant(relu(in[r, :kp] @ w + b)) for r < rows, where rows
+// are `stride` bytes apart. Columns n..np-1 are written as 0, so the next
+// layer's dp4a loop reads zeros there.
+__device__ __forceinline__ void dense_layer(const ChainLayer& L,
+                                            const int8_t* wt, const int* bias,
+                                            const int8_t* in, int8_t* out,
+                                            int rows, int stride) {
+  const int kw = L.kp >> 2, ksw = L.ks >> 2, sw = stride >> 2;
+  const int* w32 = reinterpret_cast<const int*>(wt);
+  const int* in32 = reinterpret_cast<const int*>(in);
+  for (int o = threadIdx.x; o < rows * L.np; o += blockDim.x) {
+    const int r = o / L.np, c = o - r * L.np;
+    int8_t v = 0;
+    if (c < L.n) {
+      const int* a = in32 + r * sw;
+      const int* w = w32 + c * ksw;
+      int acc = L.has_bias ? bias[c] : 0;
+      for (int k = 0; k < kw; ++k) acc = __dp4a(a[k], w[k], acc);
+      if (L.relu) acc = max(acc, 0);
+      v = requant_sat8(acc, L.shift);
+    }
+    out[r * stride + c] = v;
+  }
+}
+
+// Carries `rows` rows held in `a` through every layer of `c`, ping-ponging
+// between `a` and `b`; returns the buffer that holds the last layer's output.
+__device__ __forceinline__ int8_t* run_chain(const Chain& c, const int8_t* ws,
+                                             const int* bs, int8_t* a,
+                                             int8_t* b, int rows, int stride) {
+  for (int l = 0; l < c.n_layers; ++l) {
+    const ChainLayer& L = c.layer[l];
+    dense_layer(L, ws + L.w_off, bs + L.b_off, a, b, rows, stride);
+    __syncthreads();
+    int8_t* t = a;
+    a = b;
+    b = t;
+  }
+  return a;
+}

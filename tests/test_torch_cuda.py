@@ -1,0 +1,159 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and nvcc: it is marked ``cuda`` and
+skips where there is none. On a GPU machine:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+The file imports no JAX, so it runs where only PyTorch is installed.
+"""
+import itertools
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build, launches
+from repro_torch.kernels import cascade_mlp as tcm
+from repro_torch.kernels import mm_int8 as tmm
+from repro_torch.quant import quantize_mlp
+from repro_torch.serve import JetServer
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _int8(rng, shape, dev, lo=-128, hi=128):
+    return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int8)).to(dev)
+
+
+def _qmlp(rng, dims, relu_last=False):
+    ws = [rng.normal(0, 0.4, (dims[i], dims[i + 1])) for i in range(len(dims) - 1)]
+    bs = [rng.normal(0, 0.1, (d,)) for d in dims[1:]]
+    relus = [True] * (len(ws) - 1) + [relu_last]
+    return quantize_mlp(ws, bs, relus, rng.normal(0, 1, (64, dims[0])))
+
+
+def _deepsets(rng, f, phi_nodes, rho_nodes):
+    return (_qmlp(rng, [f] + phi_nodes, relu_last=True),
+            _qmlp(rng, [phi_nodes[-1]] + rho_nodes))
+
+
+@pytest.mark.parametrize("m,k,n", list(itertools.product([1, 7, 100, 4096],
+                                                         [5, 21, 130],
+                                                         [5, 64, 200])))
+def test_mm_int8_equals_plain(dev, m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    x, w = _int8(rng, (m, k), dev), _int8(rng, (k, n), dev)
+    b = torch.from_numpy(rng.integers(-5000, 5000, n).astype(np.int32)).to(dev)
+    for kw in (dict(shift=7, relu=True), dict(shift=0), dict(out_int8=False),
+               dict(shift=30)):
+        assert torch.equal(tmm.mm_int8(x, w, b, **kw),
+                           tmm.mm_int8_ref(x, w, b, **kw))
+        assert torch.equal(tmm.mm_int8(x, w, **kw), tmm.mm_int8_ref(x, w, **kw))
+
+
+def test_mm_int8_saturates(dev):
+    x = torch.full((8, 128), 127, dtype=torch.int8, device=dev)
+    w = torch.full((128, 8), 127, dtype=torch.int8, device=dev)
+    out = tmm.mm_int8(x, w)
+    assert int(out.max()) == 127 and int(out.min()) == 127
+
+
+CHAINS = [[16, 64, 32, 32, 32, 5], [16, 128, 64, 64, 64, 5], [21, 32, 5],
+          [32, 128, 64, 5], [64, 32, 128, 32, 5],
+          [512, 256, 5]]                       # above 48 KB of shared memory
+
+
+@pytest.mark.parametrize("dims", CHAINS, ids=lambda d: "-".join(map(str, d)))
+def test_cascade_mlp_and_unfused_equal_plain(dev, dims):
+    rng = np.random.default_rng(len(dims))
+    q = _qmlp(rng, dims).to(dev)
+    for rows in (1, 63, 64, 65, 4096):
+        x = _int8(rng, (rows, dims[0]), dev)
+        want = tcm.cascade_mlp_ref(x, q)
+        assert torch.equal(tcm.cascade_mlp(x, q), want)
+        assert torch.equal(tcm.mlp_unfused(x, q), want)
+
+
+def test_cascade_mlp_refuses_a_chain_above_one_block(dev):
+    q = _qmlp(np.random.default_rng(0), [1024, 256, 5]).to(dev)
+    x = torch.zeros((4, 1024), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="cannot be fused"):
+        tcm.cascade_mlp(x, q)
+
+
+@pytest.mark.parametrize("m,agg", [(1, "mean"), (7, "mean"), (32, "sum"),
+                                   (64, "mean"), (200, "sum")])
+def test_deepsets_equals_plain(dev, m, agg):
+    rng = np.random.default_rng(m)
+    phi, rho = _deepsets(rng, 21, [64, 64, 64], [64, 10])
+    phi, rho = phi.to(dev), rho.to(dev)
+    x = _int8(rng, (64, m, 21), dev, -40, 40)
+    mp = 1 << (m - 1).bit_length()
+    want = tcm.deepsets_ref(F.pad(x, (0, 0, 0, mp - m)), phi, rho, agg=agg)
+    assert torch.equal(tcm.deepsets(x, phi, rho, agg=agg), want)
+    assert torch.equal(tcm.deepsets(x[0], phi, rho, agg=agg), want[0])
+
+
+def test_each_wrapper_counts_its_launches(dev):
+    rng = np.random.default_rng(1)
+    q = _qmlp(rng, [16, 32, 5]).to(dev)
+    phi, rho = _deepsets(rng, 21, [32, 32], [10])
+    phi, rho = phi.to(dev), rho.to(dev)
+    launches.reset()
+    tcm.cascade_mlp(_int8(rng, (70, 16), dev), q)
+    tcm.mlp_unfused(_int8(rng, (70, 16), dev), q)
+    tcm.deepsets(_int8(rng, (3, 32, 21), dev, -40, 40), phi, rho)
+    assert launches.snapshot() == {"cascade_mlp": 1, "mm_int8": 2,
+                                   "deepsets": 1}
+    tcm.cascade_mlp(torch.zeros((5, 16), dtype=torch.int8), q.to("cpu"))
+    assert launches.get("cascade_mlp") == 1     # the plain version counts nothing
+
+
+def test_build_is_cached_by_source_hash(dev):
+    _build.library()
+    out = _build.BUILD_ROOT / _build.source_hash()
+    assert (out / _build.LIB_NAME).exists()
+    assert "registers" in (out / "build.log").read_text()
+
+
+@pytest.mark.parametrize("mode", ["fused", "unfused"])
+def test_server_on_cuda_equals_plain_server(dev, mode):
+    rng = np.random.default_rng(2)
+    q = _qmlp(rng, [16, 64, 32, 5])
+    x = rng.integers(-60, 60, (16, 64, 16)).astype(np.int8)
+    srv = JetServer(q, mode=mode, device=dev, max_batch=8, window_us=5000.0)
+    ref = JetServer(q, mode="ref", device="cpu")
+    try:
+        reqs = [srv.submit(e) for e in x]
+        for r, e in zip(reqs, x):
+            assert r.event.wait(60) and r.error is None
+            np.testing.assert_array_equal(r.result, ref.infer(e))
+        assert max(srv.stats.batch_sizes) > 1
+    finally:
+        srv.close()
+        ref.close()
+
+
+def test_server_refuses_deepsets_unfused_on_cuda(dev):
+    """DeepSets has no per-layer kernel path, so 'unfused' would serve the
+    plain version on the card: refused there, kept for the CPU."""
+    phi, rho = _deepsets(np.random.default_rng(3), 21, [32, 32], [10])
+    with pytest.raises(ValueError, match="no per-layer kernel path"):
+        JetServer(phi, rho=rho, mode="unfused", device=dev)
+    JetServer(phi, rho=rho, mode="unfused", device="cpu").close()
+
+
+def test_prepare_packs_cuda_models_once(dev):
+    q = _qmlp(np.random.default_rng(4), [16, 32, 5]).to(dev)
+    tcm.prepare(q, None)
+    assert tcm.packed_chain(q) is tcm.packed_chain(q)
+    assert q in tcm.ops._packed
