@@ -6,17 +6,27 @@
 Phases, each printing its own lines; any failure raises and exits nonzero:
   1. the card's name and power limit, as nvidia-smi reports them;
   2. the kernels' build from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
-  3. every kernel held against its plain PyTorch version on the card with
-     torch.equal, over the shapes of the JAX package's kernel tests and the
-     served models' shapes;
+  3. every kernel held against its plain PyTorch version on the card, over
+     the shapes of the JAX package's kernel tests and the served models'
+     shapes: the INT8 kernels with torch.equal (global_agg's two impls also
+     against each other), flash attention within the JAX tests' tolerance
+     (2e-5 for f32, 2e-2 for bf16);
   4. the serving path through ``repro_torch.launch.serve.main`` on CUDA:
      deepsets-32 fused, jsc-m fused and jsc-m unfused, each with the launch
      counts set to 0 just before and read just after; every served output
      must equal the plain version computed on the CPU;
-  5. each kernel timed at the served shapes (a batch of 64 events), beside
-     its bound on this card, its plain version and, for mm_int8, the
-     ``torch._int_mm`` library call.
+  5. the entry points of the kernels no model path reaches, each call with
+     the launch counts set to 0 just before and read just after:
+     ``global_agg`` at the paper's Table 4 shapes (both impls, both ops) and
+     ``flash_mha`` at the attention width of qwen3-14b (B=1, S=4096, 40
+     heads, 8 KV heads, head dim 128; f32 and bf16, causal), each output
+     held against its plain version on the card;
+  6. each kernel timed at the shapes of phases 4 and 5, beside its bound on
+     this card, its plain version and, where one PyTorch call computes the
+     same function, that call (``torch._int_mm``, ``torch.sum``,
+     ``scaled_dot_product_attention``), which the port itself never calls.
 It then prints the ``kernels`` JSON line and, last, the device JSON line.
+TF32 is off throughout, so the plain versions' f32 products are f32.
 
 It exits nonzero, with no result, where CUDA is absent or where the rest of
 the repository is not beside it. It imports nothing of the JAX package.
@@ -36,8 +46,15 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+FP32_OPS_PER_S = 67e12          # FP32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # bf16 tensor cores
 BATCH = 64
 SEED = 0
+# The paper's Table 4 shapes (src/repro/core/perfmodel.py:60-65), M x F.
+TABLE4_SHAPES = ((32, 32), (32, 64), (64, 32), (64, 64))
+# qwen3-14b's attention (src/repro/configs/archs.py:73), one sequence.
+MHA_SHAPE = dict(b=1, s=4096, h=40, kv=8, hd=128)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def _card_line() -> str:
@@ -157,6 +174,101 @@ def check_kernels(dev) -> dict:
     for name in err:
         print(f"[check] {name}: {n_cases[name]} cases equal to the plain "
               f"version on the card (max |err| {err[name]})")
+    err.update(check_global_agg(dev, rng))
+    err.update(check_flash(dev, rng))
+    return err
+
+
+def check_global_agg(dev, rng) -> dict:
+    """tests/test_kernels.py:109-112's grid, plus M that are no power of two,
+    x op x impl; every result equal to the plain version and mac equal to
+    extract_add."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.global_agg import global_agg, global_agg_ref
+    n = 0
+    for m, f in itertools.product([1, 3, 4, 7, 8, 16, 32, 64, 100],
+                                  [5, 32, 40, 64, 130]):
+        x = _rand_int8(rng, (m, f), dev)
+        for op in ("sum", "mean"):
+            mp = 1 << (m - 1).bit_length() if op == "mean" else m
+            want = global_agg_ref(F.pad(x, (0, 0, 0, mp - m)), op=op)
+            mac = global_agg(x, op=op, impl="mac")
+            _diff(mac, want)
+            _diff(global_agg(x, op=op, impl="extract_add"), mac)
+            n += 1
+    print(f"[check] global_agg: {n} cases, mac and extract_add each equal to "
+          f"the plain version on the card (max |err| 0.0)")
+    return {"global_agg": 0.0}
+
+
+def _close(got, want, tol: float) -> float:
+    """Max |got - want| in f32; raises beyond atol = rtol = ``tol``."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("the kernel's output is not finite")
+    diff = (g - w).abs()
+    if bool((diff > tol + tol * w.abs()).any()):
+        raise AssertionError(f"kernel differs from its plain version beyond "
+                             f"{tol}: max |err| {float(diff.max())}")
+    return float(diff.max())
+
+
+def _normal(rng, shape, dev, dtype):
+    import torch
+    return torch.from_numpy(rng.normal(0, 1, shape).astype("float32")).to(
+        dev, getattr(torch, dtype))
+
+
+def _heads(x, b, h, s, hd):
+    """(B, S, H, hd) -> (B*H, S, hd), contiguous."""
+    return x.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+
+
+def mha_plain(q, k, v):
+    """flash_mha's plain version: the GQA repeat and the (B*H, S, hd)
+    layout around flash_attention_ref, on the tensors' own device."""
+    from repro_torch.kernels.flash_attn import flash_attention_ref
+    b, s, h, hd = q.shape
+    n_rep = h // k.shape[2]
+    kr, vr = (t.repeat_interleave(n_rep, dim=2) for t in (k, v))
+    out = flash_attention_ref(*(_heads(t, b, h, s, hd) for t in (q, kr, vr)))
+    return out.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
+
+
+def check_flash(dev, rng) -> dict:
+    """tests/test_flash_attn.py:23-28's (BH, S, d, bq, bk) list x {f32, bf16}
+    (causal), non-causal once, and flash_mha at S in {96, 200, 256} with
+    1, 2 and 4 KV heads."""
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_ref, flash_mha)
+    err = {f"flash_attn_{dt}": 0.0 for dt in FLASH_TOL}
+    n = dict.fromkeys(FLASH_TOL, 0)
+    cases = [(dt, shape, True) for dt in FLASH_TOL
+             for shape in ((4, 256, 64, 128, 128), (2, 512, 128, 128, 128),
+                           (1, 128, 64, 64, 64), (3, 384, 128, 128, 64))]
+    cases.append(("float32", (2, 256, 64, 128, 128), False))
+    for dt, (bh, s, d, bq, bk), causal in cases:
+        q, k, v = (_normal(rng, (bh, s, d), dev, dt) for _ in range(3))
+        e = _close(flash_attention(q, k, v, causal=causal, block_q=bq,
+                                   block_k=bk),
+                   flash_attention_ref(q, k, v, causal=causal), FLASH_TOL[dt])
+        err[f"flash_attn_{dt}"] = max(err[f"flash_attn_{dt}"], e)
+        n[dt] += 1
+    for s, kv in itertools.product((96, 200, 256), (1, 2, 4)):
+        q = _normal(rng, (2, s, 8, 64), dev, "float32")
+        k, v = (_normal(rng, (2, s, kv, 64), dev, "float32") for _ in range(2))
+        e = _close(flash_mha(q, k, v, block_q=64, block_k=64),
+                   mha_plain(q, k, v), FLASH_TOL["float32"])
+        err["flash_attn_float32"] = max(err["flash_attn_float32"], e)
+        n["float32"] += 1
+    for dt in FLASH_TOL:
+        print(f"[check] flash_attn {dt}: {n[dt]} cases within {FLASH_TOL[dt]} "
+              f"of the plain version on the card (max |err| "
+              f"{err[f'flash_attn_{dt}']:.3e})")
     return err
 
 
@@ -215,14 +327,75 @@ def drive_serving() -> dict:
     return runs
 
 
-# -- phase 5: timing -------------------------------------------------------------
+# -- phase 5: the entry points of K4 and K5 ---------------------------------------
 
-def _time_ms(fn, iters: int = 200) -> dict:
+def _counted(fn, kernel: str):
+    """Calls ``fn`` with the launch counts set to 0 just before; returns its
+    result and the counts read just after, and fails if ``kernel`` never
+    launched."""
+    import torch
+    from repro_torch.kernels import launches
+    launches.reset()
+    out = fn()
+    counts = launches.snapshot()
+    torch.cuda.synchronize()
+    if counts.get(kernel, 0) == 0:
+        raise AssertionError(f"the {kernel} kernel never launched")
+    return out, counts
+
+
+def drive_entry_points(dev, err: dict) -> dict:
+    """Phase 5; folds the flash outputs' max |err| into ``err``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attn import flash_mha
+    from repro_torch.kernels.global_agg import global_agg, global_agg_ref
+
+    rng = np.random.default_rng(SEED + 2)
+    paths = {"inputs": {}}
+    for m, f in TABLE4_SHAPES:
+        x = _rand_int8(rng, (m, f), dev)
+        paths["inputs"][(m, f)] = x
+        for impl, op in itertools.product(("mac", "extract_add"),
+                                          ("sum", "mean")):
+            name = f"global_agg_{impl}"
+            out, counts = _counted(lambda: global_agg(x, op=op, impl=impl),
+                                   name)
+            _diff(out, global_agg_ref(x, op=op))
+            paths[name] = paths.get(name, 0) + counts[name]
+            print(f"[path] global_agg {m}x{f} op={op} impl={impl}: launches "
+                  f"{counts}, equal to the plain version")
+
+    c = MHA_SHAPE
+    for dt in FLASH_TOL:
+        q = _normal(rng, (c["b"], c["s"], c["h"], c["hd"]), dev, dt)
+        k, v = (_normal(rng, (c["b"], c["s"], c["kv"], c["hd"]), dev, dt)
+                for _ in range(2))
+        out, counts = _counted(lambda: flash_mha(q, k, v), "flash_attn")
+        if out.shape != (c["b"], c["s"], c["h"] * c["hd"]) or out.dtype != q.dtype:
+            raise AssertionError(f"flash_mha gave {tuple(out.shape)} {out.dtype}")
+        e = _close(out, mha_plain(q, k, v), FLASH_TOL[dt])
+        err[f"flash_attn_{dt}"] = max(err[f"flash_attn_{dt}"], e)
+        paths[f"flash_attn_{dt}"] = counts["flash_attn"]
+        paths["inputs"][dt] = (q, k, v)
+        print(f"[path] flash_mha qwen3-14b width {c} {dt}, causal: launches "
+              f"{counts}, output {tuple(out.shape)} finite, max |err| "
+              f"{e:.3e} against the plain version (tolerance "
+              f"{FLASH_TOL[dt]})")
+        del out
+        torch.cuda.empty_cache()
+    return paths
+
+
+# -- phase 6: timing -------------------------------------------------------------
+
+def _time_ms(fn, iters: int = 200, warmup: int = 10, graph: bool = True) -> dict:
     """Per-call time of ``fn``: eager (CUDA events around back-to-back calls,
     so host overhead shows when it exceeds the device time) and device
-    (the same calls captured once in a CUDA graph and replayed)."""
+    (the same calls captured once in a CUDA graph and replayed). Without
+    ``graph``, for calls of milliseconds, the device time is the eager one."""
     import torch
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -232,6 +405,8 @@ def _time_ms(fn, iters: int = 200) -> dict:
     end.record()
     end.synchronize()
     eager = start.elapsed_time(end) / iters
+    if not graph:
+        return {"ms": eager, "eager_ms": eager}
 
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -251,8 +426,8 @@ def _time_ms(fn, iters: int = 200) -> dict:
     return {"ms": start.elapsed_time(end) / iters, "eager_ms": eager}
 
 
-def _bound(nbytes: float, ops: float) -> dict:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+def _bound(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops}
@@ -266,7 +441,85 @@ def _chain_work(q, rows: int):
     return wb, ops
 
 
-def time_kernels(dev, runs: dict, err: dict) -> list:
+def time_global_agg(paths: dict, err: dict) -> list:
+    """K4, each impl at every Table 4 shape ('sum'): the kernel alone on the
+    input padded to F = 128 (``ms``) and the wrapper's call, which pads
+    first (``call_ms``). The kernels line takes 64x64, deepsets-64's phi
+    output."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.global_agg import global_agg, global_agg_ref, ops
+    out = []
+    for impl in ("mac", "extract_add"):
+        table = {}
+        for m, f in TABLE4_SHAPES:
+            x = paths["inputs"][(m, f)]
+            xp = F.pad(x, (0, ops.DEFAULT_BLOCK_F - f))
+            kt = _time_ms(lambda: ops._launch(xp, "sum", impl))
+            ct = _time_ms(lambda: global_agg(x, op="sum", impl=impl))
+            table[f"{m}x{f}"] = {"ms": kt["ms"], "call_ms": ct["ms"],
+                                 "call_eager_ms": ct["eager_ms"]}
+            print(f"[time] global_agg impl={impl} {m}x{f} sum: kernel_ms "
+                  f"{kt['ms']:.6f}, call_ms {ct['ms']:.6f} (eager "
+                  f"{ct['eager_ms']:.6f})")
+        x = paths["inputs"][(64, 64)]
+        pt = _time_ms(lambda: global_agg_ref(x, op="sum"))
+        lt = _time_ms(lambda: torch.sum(x, 0, dtype=torch.int32))
+        t = table["64x64"]
+        out.append(dict(name=f"global_agg_{impl}", route="cuda",
+                        source="src/repro_torch/kernels/csrc/global_agg.cu",
+                        replaces="src/repro/kernels/global_agg/global_agg.py:57",
+                        launches=paths[f"global_agg_{impl}"],
+                        max_abs_err=err["global_agg"], ms=t["ms"],
+                        eager_ms=t["call_eager_ms"], call_ms=t["call_ms"],
+                        plain_ms=pt["ms"], library_ms=lt["ms"],
+                        **_bound(x.numel() + 4 * 64, 0),
+                        shape="64x64 int8, op=sum", table4=table))
+    return out
+
+
+def time_flash(paths: dict, err: dict) -> list:
+    """K5 at the qwen3-14b width of phase 5, on the (B*H, S, hd) tensors
+    flash_mha hands the kernel; the library call is SDPA on the same."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_ref)
+    c = MHA_SHAPE
+    b, s, h, hd = c["b"], c["s"], c["h"], c["hd"]
+    out = []
+    for dt, peak in (("float32", FP32_OPS_PER_S), ("bfloat16", BF16_OPS_PER_S)):
+        q, k, v = paths["inputs"][dt]
+        n_rep = h // c["kv"]
+        qf = _heads(q, b, h, s, hd)
+        kf, vf = (_heads(t.repeat_interleave(n_rep, dim=2), b, h, s, hd)
+                  for t in (k, v))
+        # Calls of milliseconds: host overhead is noise, so no CUDA graph.
+        kt = _time_ms(lambda: flash_attention(qf, kf, vf, causal=True),
+                      iters=5, warmup=1, graph=False)
+        pt = _time_ms(lambda: flash_attention_ref(qf, kf, vf, causal=True),
+                      iters=3, warmup=1, graph=False)
+        # SDPA takes its fused backends only for (B, H, S, hd) inputs.
+        q4, k4, v4 = (t.view(b, h, s, hd) for t in (qf, kf, vf))
+        lt = _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), iters=5, warmup=1, graph=False)
+        nbytes = 4 * qf.numel() * qf.element_size()
+        ops = 4 * hd * b * h * s * (s + 1) // 2
+        out.append(dict(name=f"flash_attn_{dt}", route="cuda",
+                        source="src/repro_torch/kernels/csrc/flash_attn.cu",
+                        replaces="src/repro/kernels/flash_attn/flash_attn.py:70",
+                        launches=paths[f"flash_attn_{dt}"],
+                        max_abs_err=err[f"flash_attn_{dt}"], ms=kt["ms"],
+                        eager_ms=kt["eager_ms"], plain_ms=pt["ms"],
+                        library_ms=lt["ms"], **_bound(nbytes, ops, peak),
+                        shape=f"qwen3-14b attention, B*H={b * h}, S=T={s}, "
+                              f"hd={hd}, {dt}, causal"))
+        del qf, kf, vf, q4, k4, v4
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_kernels(dev, runs: dict, err: dict, paths: dict) -> list:
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -345,6 +598,8 @@ def time_kernels(dev, runs: dict, err: dict) -> list:
                     **_bound(x.numel() + wb_phi + wb_rho + b * n_out,
                              ops_phi + ops_rho + b * m * n_h),
                     shape=f"deepsets-32, {b} events x {m} x {f}"))
+    out += time_global_agg(paths, err)
+    out += time_flash(paths, err)
     for k in out:
         print(f"[time] {k['name']} ({k['shape']}): kernel_ms {k['ms']:.6f} "
               f"(eager {k['eager_ms']:.6f}), plain_ms {k['plain_ms']:.6f}, "
@@ -362,6 +617,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.manual_seed(SEED)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(_card_line())
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
@@ -373,7 +630,8 @@ def main() -> int:
 
     err = check_kernels(dev)
     runs = drive_serving()
-    kernels = time_kernels(dev, runs, err)
+    paths = drive_entry_points(dev, err)
+    kernels = time_kernels(dev, runs, err, paths)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

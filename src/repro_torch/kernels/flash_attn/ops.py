@@ -1,0 +1,102 @@
+"""Public wrappers of the flash attention kernel (K5): checks, layout,
+dispatch, launch.
+
+``flash_attention`` takes (BH, S, d) tensors; a CPU tensor goes to the plain
+version in ``ref.py``, a CUDA tensor launches ``csrc/flash_attn.cu`` or
+raises. ``flash_mha`` is the JAX package's GQA wrapper: it repeats the KV
+heads, collapses batch and heads, pads S to the block grid and slices back.
+
+``block_q`` and ``block_k`` are the JAX kernel's tile sizes. They are kept
+for its divisibility checks, which the callers pad for; the CUDA kernel
+chooses its own tiles for the card and masks any ragged edge itself.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+from .ref import flash_attention_ref
+
+MAX_HEAD_DIM = 256              # the widest tile csrc/flash_attn.cu has
+DTYPES = (torch.float32, torch.bfloat16)
+_MAX_GRID_Y = 65535
+_BLOCK_Q = 64                   # query rows a block carries (kBlockQ)
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (BH, S, d), k/v (BH, T, d), f32 or bf16 -> (BH, S, d) in q's dtype.
+    S % block_q == 0 and T % block_k == 0 (``flash_mha`` pads)."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"q (BH, S, d), k and v (BH, T, d); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    bh, s, d = q.shape
+    t = k.shape[1]
+    if k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k and v must share one dtype of {DTYPES}; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if s % block_q or t % block_k:
+        raise ValueError(f"S={s} must be a multiple of block_q={block_q} and "
+                         f"T={t} of block_k={block_k}")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is outside 1..{MAX_HEAD_DIM}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if _build.on_cpu(q, k, v):
+        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    return _launch(q, k, v, causal, scale)
+
+
+def _launch(q, k, v, causal, scale):
+    _build.require_contiguous(q=q, k=k, v=v)
+    bh, s, d = q.shape
+    if -(-s // _BLOCK_Q) > _MAX_GRID_Y:
+        raise ValueError(f"S={s} exceeds the kernel's grid")
+    out = torch.empty_like(q)
+    if bh == 0 or s == 0:
+        return out
+    lib = _build.library()
+    code = lib.flash_attn_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
+        k.shape[1], d, int(causal), scale, int(q.dtype == torch.bfloat16),
+        _build.stream_of(q))
+    _build.check(code, "flash_attn")
+    _build.launches.add("flash_attn")
+    return out
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Causal GQA flash attention. q (B, S, H, hd); k/v (B, T, KV, hd) with
+    T == S (self-attention). Returns (B, S, H*hd)."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q (B, S, H, hd), k and v (B, S, KV, hd); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if k.shape[1] != s or kv == 0 or h % kv:
+        raise ValueError(f"k {tuple(k.shape)} does not fit q {tuple(q.shape)}")
+    n_rep = h // kv
+    if n_rep > 1:
+        k = k.repeat_interleave(n_rep, dim=2)
+        v = v.repeat_interleave(n_rep, dim=2)
+    # (B, S, H, hd) -> (B*H, S, hd)
+    qf, kf, vf = (x.transpose(1, 2).reshape(b * h, s, hd) for x in (q, k, v))
+    sp = _round_up(s, max(block_q, block_k))
+    if sp != s:
+        qf, kf, vf = (F.pad(x, (0, 0, 0, sp - s)) for x in (qf, kf, vf))
+    out = flash_attention(qf.contiguous(), kf.contiguous(), vf.contiguous(),
+                          causal=True, block_q=block_q, block_k=block_k)
+    out = out[:, :s]
+    return out.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)

@@ -16,6 +16,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build, launches
 from repro_torch.kernels import cascade_mlp as tcm
+from repro_torch.kernels import flash_attn as tfa
+from repro_torch.kernels import global_agg as tga
 from repro_torch.kernels import mm_int8 as tmm
 from repro_torch.quant import quantize_mlp
 from repro_torch.serve import JetServer
@@ -112,10 +114,67 @@ def test_each_wrapper_counts_its_launches(dev):
     tcm.cascade_mlp(_int8(rng, (70, 16), dev), q)
     tcm.mlp_unfused(_int8(rng, (70, 16), dev), q)
     tcm.deepsets(_int8(rng, (3, 32, 21), dev, -40, 40), phi, rho)
+    x = _int8(rng, (64, 64), dev)
+    tga.global_agg(x, op="mean", impl="mac")
+    tga.global_agg(x, impl="extract_add")
+    tga.global_agg(x, impl="extract_add")
+    a = torch.zeros((1, 64, 4, 32), device=dev)
+    tfa.flash_mha(a, a[:, :, :1], a[:, :, :1], block_q=64, block_k=64)
     assert launches.snapshot() == {"cascade_mlp": 1, "mm_int8": 2,
-                                   "deepsets": 1}
+                                   "deepsets": 1, "global_agg_mac": 1,
+                                   "global_agg_extract_add": 2,
+                                   "flash_attn": 1}
     tcm.cascade_mlp(torch.zeros((5, 16), dtype=torch.int8), q.to("cpu"))
     assert launches.get("cascade_mlp") == 1     # the plain version counts nothing
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 7, 32, 64, 100, 4096])
+@pytest.mark.parametrize("f", [5, 64, 130, 1000])
+def test_global_agg_equals_plain(dev, m, f):
+    rng = np.random.default_rng(m * 7 + f)
+    x = _int8(rng, (m, f), dev)
+    for op in ("sum", "mean"):
+        mp = 1 << (m - 1).bit_length() if op == "mean" else m
+        want = tga.global_agg_ref(F.pad(x, (0, 0, 0, mp - m)), op=op)
+        for impl in ("mac", "extract_add"):
+            assert torch.equal(tga.global_agg(x, op=op, impl=impl), want)
+
+
+def test_global_agg_takes_a_misaligned_view(dev):
+    flat = _int8(np.random.default_rng(0), (1 + 8 * 128,), dev)
+    x = flat[1:].view(8, 128)
+    assert x.data_ptr() % 4
+    assert torch.equal(tga.global_agg(x, impl="mac"), tga.global_agg_ref(x))
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bh,s,t,d,causal", [
+    (4, 256, 256, 64, True), (2, 512, 512, 128, True), (3, 384, 384, 128, False),
+    (2, 192, 192, 256, True), (2, 100, 100, 16, True), (1, 200, 72, 96, False),
+    (1, 64, 200, 80, True)])
+def test_flash_attention_equals_plain(dev, dtype, bh, s, t, d, causal):
+    rng = np.random.default_rng(bh * s + d)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (bh, n, d)).astype(np.float32))
+               .to(dev, dtype) for n in (s, t, t))
+    got = tfa.flash_attention(q, k, v, causal=causal, block_q=s, block_k=t)
+    want = tfa.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_TOL[dtype],
+                               rtol=FLASH_TOL[dtype])
+
+
+def test_flash_mha_equals_plain(dev):
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.normal(0, 1, (2, 200, 8, 64)).astype(np.float32)).to(dev)
+    kv = torch.from_numpy(rng.normal(0, 1, (2, 2, 200, 2, 64)).astype(np.float32)).to(dev)
+    got = tfa.flash_mha(q, kv[0], kv[1], block_q=64, block_k=64)
+    want = tfa.flash_mha(q.cpu(), kv[0].cpu(), kv[1].cpu(), block_q=64,
+                         block_k=64)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)
 
 
 def test_build_is_cached_by_source_hash(dev):

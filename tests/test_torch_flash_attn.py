@@ -1,0 +1,116 @@
+"""The port's flash attention (K5) against the JAX package's.
+
+On the CPU the port's wrappers run the plain PyTorch version; the JAX
+wrappers run the Pallas kernel in interpret mode, as tests/test_flash_attn.py
+runs it. Both compute in f32 and sum in different orders: the tolerance is
+the JAX tests' own, 2e-5 for f32 and 2e-2 for bf16 (one bf16 rounding of
+the output may fall the other way). The CUDA kernel itself is held against
+the plain version in test_torch_cuda.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+from repro.kernels import flash_attn as jfa
+from repro_torch.kernels import flash_attn as tfa
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _pair(rng, shape, dtype):
+    """The same values in both packages: rounded to ``dtype`` once, by JAX."""
+    j = jnp.asarray(rng.normal(0, 1, shape), getattr(jnp, dtype))
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    return j, t
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,t,d,bq,bk", [
+    (2, 128, 128, 32, 64, 64),
+    (1, 96, 96, 16, 32, 32),
+    (2, 128, 128, 64, 64, 32),
+    (1, 64, 128, 32, 32, 64),
+])
+def test_flash_attention_matches_jax(dtype, causal, bh, s, t, d, bq, bk):
+    rng = np.random.default_rng(bh * s + d)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (bh, n, d), dtype)
+                                    for n in (s, t, t))
+    want = jfa.flash_attention(jq, jk, jv, causal=causal, block_q=bq,
+                               block_k=bk, interpret=True)
+    got = tfa.flash_attention(tq, tk, tv, causal=causal, block_q=bq,
+                              block_k=bk)
+    assert got.dtype == tq.dtype and got.shape == (bh, s, d)
+    _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ref_matches_jax_ref(dtype, causal):
+    rng = np.random.default_rng(3)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (3, 40, 24), dtype)
+                                    for _ in range(3))
+    want = jfa.flash_attention_ref(jq, jk, jv, causal=causal, scale=0.3)
+    got = tfa.flash_attention_ref(tq, tk, tv, causal=causal, scale=0.3)
+    assert got.dtype == tq.dtype
+    _close(got, want, TOL[dtype])
+
+
+@settings(max_examples=6, deadline=None)
+@given(b=st.integers(1, 2), s=st.sampled_from([40, 96, 100]),
+       h=st.sampled_from([2, 4]), kv=st.sampled_from([1, 2]),
+       hd=st.sampled_from([16, 32]))
+def test_flash_mha_matches_jax(b, s, h, kv, hd):
+    """GQA with S padded to the block grid (96 is a multiple of 32; 40 and
+    100 are not)."""
+    rng = np.random.default_rng(b * s * h + kv)
+    jq, tq = _pair(rng, (b, s, h, hd), "float32")
+    jk, tk = _pair(rng, (b, s, kv, hd), "float32")
+    jv, tv = _pair(rng, (b, s, kv, hd), "float32")
+    want = jfa.flash_mha(jq, jk, jv, block_q=32, block_k=32, interpret=True)
+    got = tfa.flash_mha(tq, tk, tv, block_q=32, block_k=32)
+    assert got.shape == (b, s, h * hd)
+    _close(got, want, 3e-5)
+
+
+def test_flash_mha_bf16_matches_jax():
+    rng = np.random.default_rng(8)
+    jq, tq = _pair(rng, (1, 70, 4, 32), "bfloat16")
+    jk, tk = _pair(rng, (1, 70, 1, 32), "bfloat16")
+    jv, tv = _pair(rng, (1, 70, 1, 32), "bfloat16")
+    want = jfa.flash_mha(jq, jk, jv, block_q=32, block_k=32, interpret=True)
+    got = tfa.flash_mha(tq, tk, tv, block_q=32, block_k=32)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, TOL["bfloat16"])
+
+
+def test_flash_attention_keeps_the_block_checks():
+    q = torch.zeros((1, 96, 16))
+    with pytest.raises(ValueError, match="block_q"):
+        tfa.flash_attention(q, q, q, block_q=64, block_k=32)
+    with pytest.raises(ValueError, match="block_k"):
+        tfa.flash_attention(q, torch.zeros((1, 80, 16)),
+                            torch.zeros((1, 80, 16)), block_q=32, block_k=64)
+
+
+@pytest.mark.parametrize("d", [0, tfa.MAX_HEAD_DIM + 1])
+def test_flash_attention_refuses_a_head_dim_out_of_range(d):
+    q = torch.zeros((1, 32, d))
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q, q, q, block_q=32, block_k=32)
+
+
+def test_flash_attention_refuses_mixed_or_integer_dtypes():
+    q = torch.zeros((1, 32, 16))
+    with pytest.raises(ValueError, match="dtype"):
+        tfa.flash_attention(q, q.to(torch.bfloat16), q, block_q=32, block_k=32)
+    with pytest.raises(ValueError, match="dtype"):
+        tfa.flash_attention(*(q.to(torch.int8),) * 3, block_q=32, block_k=32)

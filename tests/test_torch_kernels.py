@@ -174,6 +174,25 @@ def test_deepsets_ref_matches_jax_ref():
         tcm.deepsets_ref(torch.from_numpy(x[:7]), tphi, trho)
 
 
+@pytest.mark.parametrize("m", [7, 3, 21])
+def test_deepsets_ref_sum_takes_any_set_size_as_jax_does(m):
+    """'sum' shifts the set sum by floor(log2 M) for any M, as the JAX
+    package's deepsets_ref does; 'mean' still refuses an M that is not a
+    power of two, in both packages."""
+    rng = np.random.default_rng(40 + m)
+    phi, rho, tphi, trho = _deepsets_models(rng, 21, [32, 32], [10], 32)
+    x = _int8(rng, (m, 21), -40, 40)
+    want = np.asarray(jcm.deepsets_ref(jnp.asarray(x), phi, rho, agg="sum"))
+    got = tcm.deepsets_ref(torch.from_numpy(x), tphi, trho, agg="sum")
+    np.testing.assert_array_equal(got.numpy(), want)
+    batch = torch.from_numpy(np.stack([x, x[::-1].copy()]))
+    assert torch.equal(tcm.deepsets_ref(batch, tphi, trho, agg="sum")[0], got)
+    with pytest.raises(ValueError, match="power-of-two"):
+        tcm.deepsets_ref(torch.from_numpy(x), tphi, trho, agg="mean")
+    with pytest.raises(AssertionError):
+        jcm.deepsets_ref(jnp.asarray(x), phi, rho, agg="mean")
+
+
 # -- the packed layout the CUDA kernels read ---------------------------------------
 
 @pytest.mark.parametrize("dims", [[16, 64, 32, 5], [21, 32, 32, 10]])

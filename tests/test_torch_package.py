@@ -14,7 +14,9 @@ PORT = ROOT / "src" / "repro_torch"
 
 MODULES = ["repro_torch", "repro_torch.quant", "repro_torch.kernels",
            "repro_torch.kernels._build", "repro_torch.kernels.mm_int8.ops",
-           "repro_torch.kernels.cascade_mlp.ops", "repro_torch.data",
+           "repro_torch.kernels.cascade_mlp.ops",
+           "repro_torch.kernels.global_agg.ops",
+           "repro_torch.kernels.flash_attn.ops", "repro_torch.data",
            "repro_torch.models.mlp", "repro_torch.models.deepsets",
            "repro_torch.serve", "repro_torch.launch.serve"]
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -89,14 +91,18 @@ def test_kernel_library_needs_cuda():
 
 
 @pytest.mark.parametrize("op", ["mm_int8", "cascade_mlp", "deepsets",
-                                "mlp_unfused"])
+                                "mlp_unfused", "global_agg", "flash_attention",
+                                "flash_mha"])
 def test_ops_take_no_other_device(op):
     """The wrappers run the plain version only for CPU tensors: anything
     that is neither CPU nor CUDA raises instead of falling back."""
     from repro_torch.kernels.cascade_mlp import cascade_mlp, deepsets, mlp_unfused
+    from repro_torch.kernels.flash_attn import flash_attention, flash_mha
+    from repro_torch.kernels.global_agg import global_agg
     from repro_torch.kernels.mm_int8 import mm_int8
     q = _tiny_qmlp(device="meta")
     x = torch.empty((2, 4), dtype=torch.int8, device="meta")
+    a = torch.empty((1, 64, 4, 16), device="meta")
     with pytest.raises(ValueError, match="device"):
         if op == "mm_int8":
             mm_int8(x, q.layers[0].w_q)
@@ -104,8 +110,14 @@ def test_ops_take_no_other_device(op):
             cascade_mlp(x, q)
         elif op == "mlp_unfused":
             mlp_unfused(x, q)
-        else:
+        elif op == "deepsets":
             deepsets(x[None], q, _tiny_qmlp(3, 2, device="meta"))
+        elif op == "global_agg":
+            global_agg(x)
+        elif op == "flash_attention":
+            flash_attention(a[0], a[0], a[0], block_q=4, block_k=4)
+        else:
+            flash_mha(a, a[:, :, :2], a[:, :, :2], block_q=64, block_k=64)
 
 
 @pytest.mark.parametrize("shift", [-1, 31])
