@@ -5,7 +5,9 @@
 
 Phases, each printing its own lines; any failure raises and exits nonzero:
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. the kernels' build from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
+  2. the kernels' build from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a),
+     and ptxas's registers, spills and static shared memory for the
+     tensor-core kernels (K1, K5 in bf16);
   3. every kernel held against its plain PyTorch version on the card, over
      the shapes of the JAX package's kernel tests and the served models'
      shapes: the INT8 kernels with torch.equal (global_agg's two impls also
@@ -55,6 +57,27 @@ TABLE4_SHAPES = ((32, 32), (32, 64), (64, 32), (64, 64))
 # qwen3-14b's attention (src/repro/configs/archs.py:73), one sequence.
 MHA_SHAPE = dict(b=1, s=4096, h=40, kv=8, hd=128)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (BH, S, T, d, causal) off the bf16 kernel's tiles (128 queries, 64 keys),
+# as in tests/test_torch_cuda.py.
+RAGGED_FLASH = ((2, 200, 200, 64, True), (2, 130, 300, 128, False),
+                (2, 300, 130, 128, True), (1, 257, 257, 256, True),
+                (2, 70, 190, 256, False), (1, 77, 77, 5, True),
+                (1, 100, 61, 80, False))
+# The design of the kernels redesigned since their first port.
+DESIGN = {
+    "mm_int8": ("mma.sync m16n8k32 s8.s8.s32 (no .satfinite); 32-row tiles, "
+                "128 blocks for 4096 rows; 16-byte x staging; w^T in shared "
+                "memory"),
+    "flash_attn_bfloat16": (
+        "wgmma m64n64k16 bf16 -> f32; two warpgroups x 64 query rows, two "
+        "blocks an SM; 64-key K/V tiles in a 2-stage TMA ring (mbarrier), "
+        "128-byte swizzle; P from registers"),
+}
+# A second, tighter bound on flash_mha in bf16 at qwen3-14b width: the max
+# |err| over the query rows that see at least 64 keys, where |o| is small
+# and a wrong rescale or a lost key tile would hide under FLASH_TOL. Twice
+# the 3.9e-3 read there on an H100 (PERF.md).
+FLASH_LATE_ROWS, FLASH_LATE_TOL = 63, {"bfloat16": 8e-3}
 
 
 def _card_line() -> str:
@@ -99,6 +122,45 @@ def _random_deepsets(rng, f, phi_nodes, rho_nodes, m):
     rho = quantize_mlp(rw, rb, [True] * (len(rw) - 1) + [False],
                        h.mean(0, keepdims=True))
     return phi, rho
+
+
+# -- phase 2: the build -------------------------------------------------------
+
+def ptxas_report(names=("flash_attn_bf16_kernel", "mm_int8_kernel")) -> dict:
+    """Registers, spills and static shared memory that ptxas reported (the
+    build's ``-Xptxas=-v`` log) for every instantiation of the kernels
+    named."""
+    import re
+    from repro_torch.kernels import _build
+    log = (_build.BUILD_ROOT / _build.source_hash() / "build.log").read_text()
+    out, cur = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            name = next((n for n in names if n in mangled), None)
+            # Template arguments follow the name as I L<type><value>E ... E.
+            args = re.match(r"I((?:L[a-z]\d+E)+)E",
+                            mangled.split(name, 1)[1]) if name else None
+            cur = None if name is None else (
+                name + "<" + ",".join(re.findall(r"L[a-z](\d+)E",
+                                                 args.group(1))) + ">"
+                if args else name)
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            out.setdefault(cur, {}).update(spill_stores=int(spill.group(1)),
+                                           spill_loads=int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(cur, {}).update(
+                registers=int(used.group(1)),
+                static_smem_bytes=int(smem.group(1)) if smem else 0)
+    return out
 
 
 # -- phase 3: kernels against their plain versions -------------------------------
@@ -241,30 +303,36 @@ def mha_plain(q, k, v):
 
 def check_flash(dev, rng) -> dict:
     """tests/test_flash_attn.py:23-28's (BH, S, d, bq, bk) list x {f32, bf16}
-    (causal), non-causal once, and flash_mha at S in {96, 200, 256} with
-    1, 2 and 4 KV heads."""
+    (causal), non-causal once, the ragged shapes of RAGGED_FLASH in bf16,
+    and flash_mha at S in {96, 200, 256} with 1, 2 and 4 KV heads in f32
+    and bf16."""
     from repro_torch.kernels.flash_attn import (flash_attention,
                                                 flash_attention_ref, flash_mha)
     err = {f"flash_attn_{dt}": 0.0 for dt in FLASH_TOL}
     n = dict.fromkeys(FLASH_TOL, 0)
-    cases = [(dt, shape, True) for dt in FLASH_TOL
-             for shape in ((4, 256, 64, 128, 128), (2, 512, 128, 128, 128),
-                           (1, 128, 64, 64, 64), (3, 384, 128, 128, 64))]
-    cases.append(("float32", (2, 256, 64, 128, 128), False))
-    for dt, (bh, s, d, bq, bk), causal in cases:
-        q, k, v = (_normal(rng, (bh, s, d), dev, dt) for _ in range(3))
+    cases = [(dt, (bh, s, s, d, bq, bk), True) for dt in FLASH_TOL
+             for bh, s, d, bq, bk in ((4, 256, 64, 128, 128),
+                                      (2, 512, 128, 128, 128),
+                                      (1, 128, 64, 64, 64),
+                                      (3, 384, 128, 128, 64))]
+    cases.append(("float32", (2, 256, 256, 64, 128, 128), False))
+    cases += [("bfloat16", (bh, s, t, d, s, t), causal)
+              for bh, s, t, d, causal in RAGGED_FLASH]
+    for dt, (bh, s, t, d, bq, bk), causal in cases:
+        q = _normal(rng, (bh, s, d), dev, dt)
+        k, v = (_normal(rng, (bh, t, d), dev, dt) for _ in range(2))
         e = _close(flash_attention(q, k, v, causal=causal, block_q=bq,
                                    block_k=bk),
                    flash_attention_ref(q, k, v, causal=causal), FLASH_TOL[dt])
         err[f"flash_attn_{dt}"] = max(err[f"flash_attn_{dt}"], e)
         n[dt] += 1
-    for s, kv in itertools.product((96, 200, 256), (1, 2, 4)):
-        q = _normal(rng, (2, s, 8, 64), dev, "float32")
-        k, v = (_normal(rng, (2, s, kv, 64), dev, "float32") for _ in range(2))
+    for dt, s, kv in itertools.product(FLASH_TOL, (96, 200, 256), (1, 2, 4)):
+        q = _normal(rng, (2, s, 8, 64), dev, dt)
+        k, v = (_normal(rng, (2, s, kv, 64), dev, dt) for _ in range(2))
         e = _close(flash_mha(q, k, v, block_q=64, block_k=64),
-                   mha_plain(q, k, v), FLASH_TOL["float32"])
-        err["flash_attn_float32"] = max(err["flash_attn_float32"], e)
-        n["float32"] += 1
+                   mha_plain(q, k, v), FLASH_TOL[dt])
+        err[f"flash_attn_{dt}"] = max(err[f"flash_attn_{dt}"], e)
+        n[dt] += 1
     for dt in FLASH_TOL:
         print(f"[check] flash_attn {dt}: {n[dt]} cases within {FLASH_TOL[dt]} "
               f"of the plain version on the card (max |err| "
@@ -344,6 +412,24 @@ def _counted(fn, kernel: str):
     return out, counts
 
 
+def _where_err(got, want, dt: str) -> str:
+    """Where the largest |got - want| of a (B, S, H*hd) attention output
+    lies (its query row, and |want| there), the mean |err|, and the largest
+    error over the rows that see at least 64 keys, held to FLASH_LATE_TOL."""
+    diff = (got.float() - want.float()).abs()
+    i = int(diff.argmax())
+    row = (i // diff.shape[2]) % diff.shape[1]
+    late = float(diff[:, FLASH_LATE_ROWS:].max())
+    tol = FLASH_LATE_TOL.get(dt, FLASH_TOL[dt])
+    if late > tol:
+        raise AssertionError(f"max |err| {late:.3e} over rows >= "
+                             f"{FLASH_LATE_ROWS} exceeds {tol}")
+    return (f"largest at query row {row} where |want| = "
+            f"{float(want.flatten()[i].float().abs()):.4f}; mean |err| "
+            f"{float(diff.mean()):.3e}; max |err| over rows >= "
+            f"{FLASH_LATE_ROWS} {late:.3e} (tolerance {tol})")
+
+
 def drive_entry_points(dev, err: dict) -> dict:
     """Phase 5; folds the flash outputs' max |err| into ``err``."""
     import numpy as np
@@ -374,14 +460,16 @@ def drive_entry_points(dev, err: dict) -> dict:
         out, counts = _counted(lambda: flash_mha(q, k, v), "flash_attn")
         if out.shape != (c["b"], c["s"], c["h"] * c["hd"]) or out.dtype != q.dtype:
             raise AssertionError(f"flash_mha gave {tuple(out.shape)} {out.dtype}")
-        e = _close(out, mha_plain(q, k, v), FLASH_TOL[dt])
+        want = mha_plain(q, k, v)
+        e = _close(out, want, FLASH_TOL[dt])
         err[f"flash_attn_{dt}"] = max(err[f"flash_attn_{dt}"], e)
         paths[f"flash_attn_{dt}"] = counts["flash_attn"]
         paths["inputs"][dt] = (q, k, v)
         print(f"[path] flash_mha qwen3-14b width {c} {dt}, causal: launches "
               f"{counts}, output {tuple(out.shape)} finite, max |err| "
               f"{e:.3e} against the plain version (tolerance "
-              f"{FLASH_TOL[dt]})")
+              f"{FLASH_TOL[dt]}); {_where_err(out, want, dt)}")
+        del want
         del out
         torch.cuda.empty_cache()
     return paths
@@ -512,6 +600,7 @@ def time_flash(paths: dict, err: dict) -> list:
                         max_abs_err=err[f"flash_attn_{dt}"], ms=kt["ms"],
                         eager_ms=kt["eager_ms"], plain_ms=pt["ms"],
                         library_ms=lt["ms"], **_bound(nbytes, ops, peak),
+                        tflops=ops / (kt["ms"] * 1e-3) / 1e12,
                         shape=f"qwen3-14b attention, B*H={b * h}, S=T={s}, "
                               f"hd={hd}, {dt}, causal"))
         del qf, kf, vf, q4, k4, v4
@@ -601,6 +690,9 @@ def time_kernels(dev, runs: dict, err: dict, paths: dict) -> list:
     out += time_global_agg(paths, err)
     out += time_flash(paths, err)
     for k in out:
+        k["bound_share"] = k["bound_ms"] / k["ms"]
+        if k["name"] in DESIGN:
+            k["design"] = DESIGN[k["name"]]
         print(f"[time] {k['name']} ({k['shape']}): kernel_ms {k['ms']:.6f} "
               f"(eager {k['eager_ms']:.6f}), plain_ms {k['plain_ms']:.6f}, "
               f"bound_ms {k['bound_ms']:.9f} ({k['bound_by']}), library_ms "
@@ -627,6 +719,7 @@ def main() -> int:
     _build.library()
     print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"({_build.BUILD_ROOT / _build.source_hash()})")
+    print(f"[ptxas] {json.dumps(ptxas_report())}")
 
     err = check_kernels(dev)
     runs = drive_serving()

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``).
 
 * ``mm_int8``      — one INT8 layer with the fused bias/ReLU/requant epilogue
-                     (the per-layer baseline); replaces ``mm_int8_pallas``
+                     (the per-layer baseline) on the tensor cores
+                     (``mma.sync`` s8); replaces ``mm_int8_pallas``
 * ``cascade_mlp``  — the whole INT8 layer chain in one launch with weights
                      resident in shared memory (``cascade_mlp``, K2), the
                      fused DeepSets (``deepsets``, K3), and the per-layer
@@ -9,8 +10,9 @@
 * ``global_agg``   — the INT8 set reduction (K4), as a dp4a against a ones
                      word (``impl="mac"``) or serial row adds
                      (``impl="extract_add"``); replaces ``global_agg_pallas``
-* ``flash_attn``   — f32 online-softmax attention over f32 or bf16 inputs
-                     (``flash_attention``, K5) and its causal GQA wrapper
+* ``flash_attn``   — online-softmax attention (``flash_attention``, K5): f32
+                     on the FMA units, bf16 on the tensor cores (``wgmma``,
+                     f32 accumulation); and its causal GQA wrapper
                      (``flash_mha``); replaces ``flash_attention``
 
 Each kernel has ``ops.py`` (the wrapper: checks, dispatch, launch count) and

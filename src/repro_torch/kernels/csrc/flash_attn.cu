@@ -1,42 +1,74 @@
 // K5 (flash_attn): blocked attention with an online softmax, forward only.
-// q (BH, S, d), k and v (BH, T, d), in f32 or bf16 (one template), with an
-// optional causal mask (key t is visible to query s where t <= s); the output
-// (BH, S, d) is written in q's type. Everything is computed in f32, as the
-// Pallas kernel computes it: the inputs are cast up, the scores are
-// dot * scale, masked entries are -1e30, the running (m, l, acc) are updated
-// per key tile with expf, and the output is acc / max(l, 1e-30), rounded to
-// bf16 with __float2bfloat16_rn where q is bf16. No TF32, no fast math.
+// q (BH, S, d), k and v (BH, T, d), in f32 or bf16, with an optional causal
+// mask (key t is visible to query s where t <= s); the output (BH, S, d) is
+// written in q's type. Both kernels compute what the Pallas kernel computes:
+// scores dot * scale, masked entries at -1e30, the running (m, l, acc)
+// updated per key tile, and the output acc / max(l, 1e-30), rounded to bf16
+// with __float2bfloat16_rn where q is bf16. No TF32; the f32 kernel uses
+// no approximate math.
 //
 // Replaces: src/repro/kernels/flash_attn/flash_attn.py, flash_attention
 // (_flash_kernel), whose grid (BH, S/bq, T/bk) runs its kv axis in order and
-// carries (m, l, acc) in VMEM scratch from one kv step to the next.
+// carries (m, l, acc) in VMEM from one kv step to the next. Hopper's
+// grid runs in no order, so in both kernels here the kv loop moves inside
+// the block, which keeps (m, l, acc) in registers. Causal key tiles wholly
+// above the diagonal are skipped (exp(-1e30 - m) is exactly 0 in f32, so
+// this changes no bit), only the diagonal tile and a ragged last tile pay
+// for the mask, and the query tiles with the most key tiles start first.
+// The head dim is a template parameter, 64, 128 or 256; a narrower head is
+// zero-padded in shared memory, which adds exact zeros to the scores.
 //
-// What bounds it here: 4*d f32 operations for every visible (query, key)
-// pair against 16*d bytes a row for q, k, v and o, so at the sequence
-// lengths served (S = T in the thousands) it is bound by operations: the
-// FP32 units (67 TFLOP/s) for f32, and for bf16 the tensor cores, which this
-// kernel does not use.
+// What bounds it: 4*d operations for every visible (query, key) pair
+// against 16*d bytes a row for q, k, v and o (8*d in bf16), so at the
+// sequence lengths served (S = T in the thousands) it is bound by
+// operations: the FP32 units (67 TFLOP/s) for f32, the bf16 tensor cores
+// (989 TFLOP/s) for bf16.
 //
-// Design. Hopper's grid runs in no order, so the kv loop moves inside the
-// block: one block of 256 threads per (bh, 64-query tile), with the query
-// tile resident in shared memory and each 64-key tile of K and V loaded into
-// shared memory as f32 in turn (dynamic shared memory, above 48 KB, so
-// cudaFuncSetAttribute). A thread owns a 4x4 patch of the score tile and the
-// same 4 query rows of the output, so its rows' (m, l) stay in registers and
-// the row max and sum need only shuffles across the 16 threads of a row.
-// Both products are register-blocked on the FP32 FMA units, reading float4
+// f32 (flash_attn_kernel). Everything in f32 on the FMA units, as the Pallas
+// kernel computes it after casting up. One block of 256 threads per (bh,
+// 64-query tile), the query tile resident in shared memory and each 64-key
+// tile of K and V loaded into shared memory in turn (dynamic shared memory,
+// above 48 KB, so cudaFuncSetAttribute). A thread owns a 4x4 patch of the
+// score tile and the same 4 query rows of the output, so its rows' (m, l)
+// stay in registers and the row max and sum need only shuffles across the
+// 16 threads of a row. Both products are register-blocked, reading float4
 // words from shared memory with row strides chosen so that a warp hits
 // distinct banks. The probabilities pass from the score product to the
-// value product through shared memory, in the buffer of the K tile, which is
-// dead by then. Causal key tiles wholly above the diagonal are skipped
-// (exp(-1e30 - m) is exactly 0 in f32, so this changes no bit), and the
-// query tiles with the most key tiles are scheduled first. The head dim is a
-// template parameter, 64, 128 or 256; a narrower head is zero-padded in
-// shared memory, which adds exact zeros to the scores.
+// value product through shared memory, in the buffer of the K tile, which
+// is dead by then.
+//
+// bf16 (flash_attn_bf16_kernel). Both products on the tensor cores with
+// Hopper's warpgroup MMA (wgmma.mma_async m64n64k16, bf16 in, f32
+// accumulation). One block of two warpgroups per (bh, 128-query tile); each
+// warpgroup owns 64 query rows. Two blocks share an SM up to hd = 128 (at
+// most 128 registers a thread, 97 KB of shared memory a block), so one
+// block's softmax runs while the other's products occupy the tensor cores;
+// hd = 256 takes one block an SM (193 KB). Q, K and V stay bf16 in shared
+// memory, in 128-byte-swizzled panels of 64 columns (the layout wgmma's
+// descriptors name, so a tensor-core operand read hits distinct banks). One
+// thread asks the tensor memory accelerator (TMA) for each tile, a box of a
+// 3-D tensor map (d, rows, bh) that zero-fills past d and past the sequence's
+// end, and the copy completes on an mbarrier that the other threads wait on;
+// K and V tiles of 64 keys move through a ring of two stages, so the next
+// tile loads while the current one is computed, and a step needs one
+// block-wide barrier (before its stage is refilled). A tensor map needs d a
+// multiple of 8 and 16-byte aligned pointers; the wrapper pads d and copies
+// a misaligned input for it. S = Q K^T reads both operands from shared
+// memory (K-major). The softmax stays in registers: a thread holds two rows
+// of the score fragment, their max and sum are reduced over the four
+// threads of a row with shuffles, and the scores are scaled by
+// scale * log2(e) before the mask (m is kept in those units), so p is one
+// subtraction and one ex2.approx. l is
+// summed from the f32 p; only the value product's operand is rounded to bf16,
+// and it goes from the score fragment straight into wgmma's register A
+// operand, so P never touches shared memory. O += P V reads V from shared
+// memory as an MN-major B operand (wgmma's transpose), in 64-column chunks.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -46,13 +78,7 @@ constexpr int kThreads = 256;    // 16 x 16: tx over keys / columns, ty over row
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // Rows row0 .. row0 + kRows - 1 of an (n, d) matrix into shared memory as
 // f32 with row stride ld; zero for rows >= n and for columns d .. HD - 1.
@@ -248,6 +274,402 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---- bf16 on the tensor cores --------------------------------------------
+
+constexpr int kTcWarpGroups = 2;
+constexpr int kTcBlockQ = 64 * kTcWarpGroups;   // query rows a block carries
+constexpr int kTcBlockK = 64;                   // keys in one K or V tile
+constexpr int kTcThreads = 128 * kTcWarpGroups;
+constexpr int kTcStages = 2;                    // the K/V ring
+
+// Bytes of a tile of `rows` rows and HD bf16 columns, and the block's
+// dynamic shared memory: Q, the ring of K and V tiles, and 1 KB of slack to
+// align the swizzle atoms (8 rows x 128 bytes) to 1024 bytes.
+template <int HD>
+__host__ __device__ constexpr int tc_tile_bytes(int rows) {
+  return rows * HD * 2;
+}
+template <int HD>
+constexpr int tc_smem_bytes() {
+  return tc_tile_bytes<HD>(kTcBlockQ) +
+         2 * kTcStages * tc_tile_bytes<HD>(kTcBlockK) + 1024;
+}
+
+// Byte offset of 16-byte chunk `chunk` (columns 8*chunk ..) of row r in a
+// tile of `rows` rows: panels of 64 columns, rows 128 bytes apart within a
+// panel, chunks XOR-swizzled by r % 8 (CU_TENSOR_MAP_SWIZZLE_128B's layout).
+__device__ __forceinline__ uint32_t swizzled(int r, int chunk, int rows) {
+  return static_cast<uint32_t>((chunk >> 3) * rows * 128 + r * 128 +
+                               (((chunk & 7) ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Hopper's tensor memory accelerator: one thread asks for a box of a 3-D
+// tensor map (d, rows, bh) to be copied into shared memory, swizzled as the
+// map says; the copy counts its bytes off an mbarrier in shared memory.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(bh)
+      : "memory");
+}
+
+// Rows row0 .. row0 + kRows - 1 of head bh into a swizzled tile, one
+// 64-column panel a box.
+template <int HD, int kRows>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row0, int bh) {
+#pragma unroll
+  for (int p = 0; p < HD / 64; ++p)
+    tma_load(dst + p * kRows * 128, map, bar, 64 * p, row0, bh);
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`:
+// 8-row groups 1024 bytes apart (the stride byte offset, and the leading
+// byte offset, which a K-major swizzled operand and an MN-major one 64
+// columns wide do not read).
+__device__ __forceinline__ uint64_t tc_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define TC_D8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),      \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TC_D32 TC_D8(0), TC_D8(8), TC_D8(16), TC_D8(24)
+#define TC_D32_LIST                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31}"
+
+// d (64 x 64, f32) (+)= A (64 x 16) B (16 x 64), A and B K-major in shared
+// memory; `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_D32_LIST
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TC_D32
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64), B
+// MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_D32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TC_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// 2^x on the special-function unit; relative error below 2^-22, and a
+// result below 2^-126 flushes to 0 (a weight under 1e-38 next to the row's
+// largest, 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The m64nNk16 accumulator fragment: in warp w of a warpgroup, lane `lane`
+// holds d[4j + e] at row 16w + lane/4 + 8*(e/2), column 8j + 2*(lane%4) +
+// e%2. A thread thus owns two rows of the score tile (16 values each) and
+// the same two rows of the output.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, HD <= 128 ? 2 : 1)
+flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ o, int s_len, int t_len,
+                       int d, int causal, float scale_log2) {
+  constexpr int NC = HD / 64;                  // 64-column output chunks
+  constexpr int kKV = tc_tile_bytes<HD>(kTcBlockK);
+  extern __shared__ uint8_t tc_smem[];
+  __shared__ __align__(8) uint64_t bars[1 + kTcStages];  // Q, then a stage
+  const uint32_t qs = (smem_addr(tc_smem) + 1023) & ~1023u;
+  const uint32_t ring = qs + tc_tile_bytes<HD>(kTcBlockQ);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBlockQ;  // longest first
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int wg_row0 = q0 + 64 * wg;            // this warpgroup's first row
+  const int r0 = wg_row0 + 16 * warp + lane / 4;  // the thread's rows: r0, r0 + 8
+  const size_t qoff = static_cast<size_t>(bh) * s_len * d;
+
+  int n_tiles = (t_len + kTcBlockK - 1) / kTcBlockK;
+  if (causal) n_tiles = min(n_tiles, (q0 + kTcBlockQ - 1) / kTcBlockK + 1);
+  const uint32_t bar0 = smem_addr(bars);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kTcStages; ++i) mbar_init(bar0 + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && n_tiles > 0) {  // no keys (t_len 0): no copies
+    mbar_expect(bar0, tc_tile_bytes<HD>(kTcBlockQ));
+    tma_tile<HD, kTcBlockQ>(qs, &tm_q, bar0, q0, bh);
+    mbar_expect(bar0 + 8, 2 * kKV);
+    tma_tile<HD, kTcBlockK>(ring, &tm_k, bar0 + 8, 0, bh);
+    tma_tile<HD, kTcBlockK>(ring + kKV, &tm_v, bar0 + 8, 0, bh);
+  }
+
+  float acc[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's part
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const uint32_t ks = ring + (j % kTcStages) * 2 * kKV, vs = ks + kKV;
+    // Tile j + 1 goes to the other stage, which the barrier at the end of
+    // step j - 1 freed.
+    const uint32_t nks = ring + ((j + 1) % kTcStages) * 2 * kKV;
+    const uint32_t nbar = bar0 + 8 * (1 + (j + 1) % kTcStages);
+    if (threadIdx.x == 0 && j + 1 < n_tiles) {
+      const int k1 = (j + 1) * kTcBlockK;
+      mbar_expect(nbar, 2 * kKV);
+      tma_tile<HD, kTcBlockK>(nks, &tm_k, nbar, k1, bh);
+      tma_tile<HD, kTcBlockK>(nks + kKV, &tm_v, nbar, k1, bh);
+    }
+    if (j == 0) mbar_wait(bar0, 0);
+    mbar_wait(bar0 + 8 * (1 + j % kTcStages), (j / kTcStages) & 1);
+
+    const int k0 = j * kTcBlockK;
+    // A warpgroup whose rows all lie above the tile's first key, or below
+    // the sequence's end, skips it (every weight would be exactly 0).
+    const bool live = wg_row0 < s_len && (!causal || k0 <= wg_row0 + 63);
+    if (live) {
+      float s[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;
+        wgmma_ss(s,
+                 tc_desc(qs + (kk / 4) * kTcBlockQ * 128 + wg * 64 * 128 + col),
+                 tc_desc(ks + (kk / 4) * kTcBlockK * 128 + col), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(s);
+
+      const bool mask = (causal && k0 + kTcBlockK - 1 > wg_row0) ||
+                        k0 + kTcBlockK > t_len;
+      // Scores are scaled by scale * log2(e) before the mask, as the plain
+      // version scales before it masks (so any sign of scale holds), and m
+      // is kept in those units: p = 2^(s - m) is one subtraction and ex2.
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] *= scale_log2;
+        if (mask) {
+          const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+          const int qpos = r0 + 8 * ((i / 2) % 2);
+          if (kpos >= t_len || (causal && kpos > qpos)) s[i] = kNegInf;
+        }
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+      }
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        corr[h] = ex2(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= corr[h];
+      }
+      uint32_t pa[4][4];                      // P as four k16 A fragments
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int h = (i / 2) % 2;
+        const float p0 = ex2(s[i] - m[h]);
+        const float p1 = ex2(s[i + 1] - m[h]);
+        l[h] += p0 + p1;
+        pa[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[c][i] *= corr[(i / 2) % 2];
+        reg_fence(acc[c]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int kk = 0; kk < kTcBlockK / 16; ++kk)
+          wgmma_rs(acc[c], pa[kk],
+                   tc_desc(vs + c * kTcBlockK * 128 + kk * 16 * 128));
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+    }
+    __syncthreads();                          // this stage may be refilled
+  }
+
+  float den[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    den[h] = fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = r0 + 8 * ((i / 2) % 2);
+      const int col = 64 * c + 8 * (i / 4) + 2 * (lane % 4);
+      if (row >= s_len || col >= d) continue;
+      const float a0 = acc[c][i] / den[(i / 2) % 2];
+      const float a1 = acc[c][i + 1] / den[(i / 2) % 2];
+      // d is even (a multiple of 8), so col + 1 < d as well.
+      *reinterpret_cast<__nv_bfloat162*>(o + qoff +
+                                         static_cast<size_t>(row) * d + col) =
+          __floats2bfloat162_rn(a0, a1);
+    }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the CUDA runtime's entry-point
+// query (so the library needs no link against libcuda); null where absent.
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                   cudaEnableDefault, &found) == cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The (d, rows, bh) bf16 tensor at `base` in boxes of 64 columns x box_rows
+// rows, 128-byte swizzled; reads past d or rows fill zeros.
+bool tensor_map(CUtensorMap* map, const void* base, int rows, int d, int bh,
+                int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int bh, int s_len, int t_len, int d, int causal,
+                        float scale, cudaStream_t stream) {
+  constexpr int smem = tc_smem_bytes<HD>();
+  const auto kernel = flash_attn_bf16_kernel<HD>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // Tensor maps need rows a multiple of 16 bytes apart and 16-byte aligned
+  // bases, which the wrapper (flash_attn/ops.py) pads and copies for. With
+  // no keys the kernel copies nothing and the maps stay empty.
+  if (d % 8 != 0 || ((reinterpret_cast<uintptr_t>(q) |
+                      reinterpret_cast<uintptr_t>(k) |
+                      reinterpret_cast<uintptr_t>(v)) % 16) != 0)
+    return cudaErrorInvalidValue;
+  CUtensorMap tm[3] = {};
+  if (t_len > 0 && !(tensor_map(&tm[0], q, s_len, d, bh, kTcBlockQ) &&
+                     tensor_map(&tm[1], k, t_len, d, bh, kTcBlockK) &&
+                     tensor_map(&tm[2], v, t_len, d, bh, kTcBlockK)))
+    return cudaErrorInvalidValue;
+  const dim3 grid(bh, (s_len + kTcBlockQ - 1) / kTcBlockQ);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      tm[0], tm[1], tm[2], static_cast<__nv_bfloat16*>(o), s_len, t_len, d,
+      causal, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
+                          int bh, int s_len, int t_len, int d, int causal,
+                          float scale, cudaStream_t stream) {
+  if (d <= 64)
+    return launch_bf16<64>(q, k, v, o, bh, s_len, t_len, d, causal, scale,
+                           stream);
+  if (d <= 128)
+    return launch_bf16<128>(q, k, v, o, bh, s_len, t_len, d, causal, scale,
+                            stream);
+  if (d <= 256)
+    return launch_bf16<256>(q, k, v, o, bh, s_len, t_len, d, causal, scale,
+                            stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int bh, int s_len, int t_len, int d, int causal,
@@ -274,7 +696,7 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, bh, s, t, d, causal, scale, st)
+      bf16 ? dispatch_bf16(q, k, v, o, bh, s, t, d, causal, scale, st)
            : dispatch<float>(q, k, v, o, bh, s, t, d, causal, scale, st);
   return static_cast<int>(err);
 }

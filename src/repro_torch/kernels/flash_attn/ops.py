@@ -24,7 +24,8 @@ from .ref import flash_attention_ref
 MAX_HEAD_DIM = 256              # the widest tile csrc/flash_attn.cu has
 DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
-_BLOCK_Q = 64                   # query rows a block carries (kBlockQ)
+# Query rows a block carries: kBlockQ (f32) and kTcBlockQ (bf16).
+_BLOCK_Q = {torch.float32: 64, torch.bfloat16: 128}
 
 
 def _round_up(a: int, b: int) -> int:
@@ -61,19 +62,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _launch(q, k, v, causal, scale):
     _build.require_contiguous(q=q, k=k, v=v)
     bh, s, d = q.shape
-    if -(-s // _BLOCK_Q) > _MAX_GRID_Y:
+    if -(-s // _BLOCK_Q[q.dtype]) > _MAX_GRID_Y:
         raise ValueError(f"S={s} exceeds the kernel's grid")
-    out = torch.empty_like(q)
     if bh == 0 or s == 0:
-        return out
+        return torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        # The bf16 kernel's tensor maps need rows a multiple of 16 bytes
+        # apart and 16-byte aligned bases: pad d with zero columns (they add
+        # exact zeros to the scores) and copy a misaligned view.
+        dp = _round_up(d, 8)
+        if dp != d:
+            q, k, v = (F.pad(x, (0, dp - d)) for x in (q, k, v))
+        else:
+            q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
+                       for x in (q, k, v))
+    out = torch.empty_like(q)
     lib = _build.library()
     code = lib.flash_attn_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
-        k.shape[1], d, int(causal), scale, int(q.dtype == torch.bfloat16),
+        k.shape[1], q.shape[2], int(causal), scale,
+        int(q.dtype == torch.bfloat16),
         _build.stream_of(q))
     _build.check(code, "flash_attn")
     _build.launches.add("flash_attn")
-    return out
+    return out if out.shape[2] == d else out[..., :d].contiguous()
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -16,7 +16,7 @@ from .ref import mm_int8_ref
 
 MAX_SHIFT = 30
 _MAX_GRID_Y = 65535
-_BLOCK = 64
+_BLOCK = 32                     # rows a block carries (BM)
 
 
 def mm_int8(x: torch.Tensor, w: torch.Tensor,

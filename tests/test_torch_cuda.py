@@ -62,6 +62,30 @@ def test_mm_int8_equals_plain(dev, m, k, n):
         assert torch.equal(tmm.mm_int8(x, w, **kw), tmm.mm_int8_ref(x, w, **kw))
 
 
+@pytest.mark.parametrize("m,k,n", list(itertools.product([16, 4096],
+                                                         [16, 32, 64, 128],
+                                                         [5, 32, 64, 200])))
+def test_mm_int8_aligned_rows_equal_plain(dev, m, k, n):
+    """K a multiple of 16 on a fresh tensor: the kernel's 16-byte staging."""
+    rng = np.random.default_rng(m + 3 * k + n)
+    x, w = _int8(rng, (m, k), dev), _int8(rng, (k, n), dev)
+    b = torch.from_numpy(rng.integers(-5000, 5000, n).astype(np.int32)).to(dev)
+    assert x.data_ptr() % 16 == 0
+    for kw in (dict(shift=5, relu=True), dict(out_int8=False)):
+        assert torch.equal(tmm.mm_int8(x, w, b, **kw),
+                           tmm.mm_int8_ref(x, w, b, **kw))
+
+
+def test_mm_int8_takes_a_misaligned_view(dev):
+    """K = 32 but x starts one byte past an alignment: the masked path."""
+    rng = np.random.default_rng(9)
+    x = _int8(rng, (1 + 100 * 32,), dev)[1:].view(100, 32)
+    w = _int8(rng, (32, 64), dev)
+    assert x.data_ptr() % 16
+    for kw in (dict(shift=4, relu=True), dict(out_int8=False)):
+        assert torch.equal(tmm.mm_int8(x, w, **kw), tmm.mm_int8_ref(x, w, **kw))
+
+
 def test_mm_int8_saturates(dev):
     x = torch.full((8, 128), 127, dtype=torch.int8, device=dev)
     w = torch.full((128, 8), 127, dtype=torch.int8, device=dev)
@@ -155,7 +179,13 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 @pytest.mark.parametrize("bh,s,t,d,causal", [
     (4, 256, 256, 64, True), (2, 512, 512, 128, True), (3, 384, 384, 128, False),
     (2, 192, 192, 256, True), (2, 100, 100, 16, True), (1, 200, 72, 96, False),
-    (1, 64, 200, 80, True)])
+    (1, 64, 200, 80, True),
+    # S and T off the bf16 kernel's tiles (128 queries, 64 keys), T != S
+    (2, 200, 200, 64, True), (2, 130, 300, 128, False), (2, 300, 130, 128, True),
+    (1, 257, 257, 256, True), (2, 70, 190, 256, False), (2, 96, 96, 16, False),
+    (1, 77, 77, 5, True), (1, 100, 61, 80, False),
+    # B*H x query tiles above one wave of 132 SMs
+    (160, 512, 512, 128, True), (300, 256, 256, 64, False)])
 def test_flash_attention_equals_plain(dev, dtype, bh, s, t, d, causal):
     rng = np.random.default_rng(bh * s + d)
     q, k, v = (torch.from_numpy(rng.normal(0, 1, (bh, n, d)).astype(np.float32))
@@ -175,6 +205,50 @@ def test_flash_mha_equals_plain(dev):
     want = tfa.flash_mha(q.cpu(), kv[0].cpu(), kv[1].cpu(), block_q=64,
                          block_k=64)
     torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_bf16_takes_a_misaligned_view(dev):
+    """d = 64 but q, k and v start 2 bytes past an alignment: the wrapper
+    copies them to aligned storage for the bf16 kernel's tensor maps."""
+    rng = np.random.default_rng(7)
+    flat = torch.from_numpy(rng.normal(0, 1, 1 + 3 * 2 * 150 * 64).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    q, k, v = flat[1:].view(3, 2, 150, 64)
+    assert q.data_ptr() % 16
+    got = tfa.flash_attention(q, k, v, causal=True, block_q=150, block_k=150)
+    want = tfa.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("scale", [0.3, 0.0, -0.2])
+def test_flash_attention_explicit_scale_equals_plain(dev, dtype, causal, scale):
+    """A given scale of either sign, or 0: masked keys (causal) and the
+    ragged keys past T = 130 still weigh nothing."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (2, n, 64)).astype(np.float32))
+               .to(dev, dtype) for n in (200, 130, 130))
+    got = tfa.flash_attention(q, k, v, causal=causal, block_q=200,
+                              block_k=130, scale=scale)
+    want = tfa.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_TOL[dtype],
+                               rtol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("kv", [1, 2, 4])
+def test_flash_mha_bf16_equals_plain(dev, kv):
+    rng = np.random.default_rng(10 + kv)
+    q = torch.from_numpy(rng.normal(0, 1, (2, 200, 8, 128)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    k, v = (torch.from_numpy(rng.normal(0, 1, (2, 200, kv, 128)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    got = tfa.flash_mha(q, k, v, block_q=64, block_k=64)
+    want = tfa.flash_mha(q.cpu(), k.cpu(), v.cpu(), block_q=64, block_k=64)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 200, 8 * 128)
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_build_is_cached_by_source_hash(dev):

@@ -92,6 +92,49 @@ def test_flash_mha_bf16_matches_jax():
     _close(got, want, TOL["bfloat16"])
 
 
+def _bf16_tensor_core_plain(q, k, v, *, causal, block_k=64):
+    """K5-bf16's numerics, key tile by key tile: f32 scores from the bf16
+    inputs, the online (m, l, acc) in f32 with l summed from the f32 p, and
+    only the value product's operand p rounded to bf16; the output rounded
+    to bf16."""
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    bh, s, d = q.shape
+    t = k.shape[1]
+    scale = 1.0 / np.sqrt(d)
+    m = torch.full((bh, s, 1), -1e30)
+    l = torch.zeros((bh, s, 1))
+    acc = torch.zeros((bh, s, d))
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, t, block_k):
+        kt, vt = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+        sc = torch.einsum("bsd,btd->bst", qf, kt) * scale
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+            sc = sc.masked_fill(kpos > qpos, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(-1, keepdim=True)
+        acc = corr * acc + torch.einsum(
+            "bst,btd->bsd", p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_tensor_core_numerics_match_jax(causal):
+    """The CUDA kernel's bf16 design (P rounded to bf16 before P V) stays
+    within the bf16 tolerance of the JAX kernel, which keeps P in f32."""
+    rng = np.random.default_rng(13)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (2, 256, 128), "bfloat16")
+                                    for _ in range(3))
+    want = jfa.flash_attention(jq, jk, jv, causal=causal, block_q=128,
+                               block_k=128, interpret=True)
+    got = _bf16_tensor_core_plain(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, TOL["bfloat16"])
+
+
 def test_flash_attention_keeps_the_block_checks():
     q = torch.zeros((1, 96, 16))
     with pytest.raises(ValueError, match="block_q"):
