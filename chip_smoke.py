@@ -7,10 +7,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
   1. the card's name and power limit, as nvidia-smi reports them;
   2. the kernels' build from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a),
      and ptxas's registers, spills and static shared memory for the
-     tensor-core kernels (K1, K5 in bf16);
+     redesigned kernels (K1, K2, K5 in f32 and in bf16);
   3. every kernel held against its plain PyTorch version on the card, over
      the shapes of the JAX package's kernel tests and the served models'
-     shapes: the INT8 kernels with torch.equal (global_agg's two impls also
+     shapes, and K2's chains off its tensor-core tiles (K0, N not a multiple
+     of 8, a layer without bias): the INT8 kernels with torch.equal
+     (global_agg's two impls also
      against each other), flash attention within the JAX tests' tolerance
      (2e-5 for f32, 2e-2 for bf16);
   4. the serving path through ``repro_torch.launch.serve.main`` on CUDA:
@@ -26,7 +28,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
   6. each kernel timed at the shapes of phases 4 and 5, beside its bound on
      this card, its plain version and, where one PyTorch call computes the
      same function, that call (``torch._int_mm``, ``torch.sum``,
-     ``scaled_dot_product_attention``), which the port itself never calls.
+     ``scaled_dot_product_attention``), which the port itself never calls;
+     K2 beside K1's five launches of the same batch and at three chain
+     depths, and SDPA's own max |err| in f32 against the plain version.
 It then prints the ``kernels`` JSON line and, last, the device JSON line.
 TF32 is off throughout, so the plain versions' f32 products are f32.
 
@@ -35,6 +39,7 @@ the repository is not beside it. It imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import subprocess
@@ -57,8 +62,9 @@ TABLE4_SHAPES = ((32, 32), (32, 64), (64, 32), (64, 64))
 # qwen3-14b's attention (src/repro/configs/archs.py:73), one sequence.
 MHA_SHAPE = dict(b=1, s=4096, h=40, kv=8, hd=128)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# (BH, S, T, d, causal) off the bf16 kernel's tiles (128 queries, 64 keys),
-# as in tests/test_torch_cuda.py.
+# (BH, S, T, d, causal) off both kernels' tiles (128 queries, 64 keys; 64
+# queries, 32 keys for the f32 kernel at d > 128), as in
+# tests/test_torch_cuda.py.
 RAGGED_FLASH = ((2, 200, 200, 64, True), (2, 130, 300, 128, False),
                 (2, 300, 130, 128, True), (1, 257, 257, 256, True),
                 (2, 70, 190, 256, False), (1, 77, 77, 5, True),
@@ -72,6 +78,16 @@ DESIGN = {
         "wgmma m64n64k16 bf16 -> f32; two warpgroups x 64 query rows, two "
         "blocks an SM; 64-key K/V tiles in a 2-stage TMA ring (mbarrier), "
         "128-byte swizzle; P from registers"),
+    "flash_attn_float32": (
+        "FP32 FMA; 8 warps x 16 query rows, one block an SM; 8x4 score and "
+        "8x8 output register patches (hd 128); 64-key K/V tiles by cp.async "
+        "through a 3-buffer mbarrier ring, refilled by the warps one tile "
+        "late; P in warp-private shared memory under __syncwarp"),
+    "cascade_mlp": (
+        "mma.sync m16n8k32 s8.s8.s32 (no .satfinite); a warp carries 16 rows "
+        "through every layer, activations in warp-private shared memory "
+        "under __syncwarp; 32-row blocks, 128 for 4096 rows; weights, biases "
+        "and x by cp.async, one block barrier"),
 }
 # A second, tighter bound on flash_mha in bf16 at qwen3-14b width: the max
 # |err| over the query rows that see at least 64 keys, where |o| is small
@@ -126,7 +142,8 @@ def _random_deepsets(rng, f, phi_nodes, rho_nodes, m):
 
 # -- phase 2: the build -------------------------------------------------------
 
-def ptxas_report(names=("flash_attn_bf16_kernel", "mm_int8_kernel")) -> dict:
+def ptxas_report(names=("flash_attn_bf16_kernel", "flash_attn_kernel",
+                        "mm_int8_kernel", "cascade_mlp_kernel")) -> dict:
     """Registers, spills and static shared memory that ptxas reported (the
     build's ``-Xptxas=-v`` log) for every instantiation of the kernels
     named."""
@@ -212,10 +229,17 @@ def check_kernels(dev) -> dict:
         chains.append([int(rng.choice([16, 21, 32, 64]))]
                       + [int(rng.choice([32, 64, 128])) for _ in range(depth - 1)]
                       + [5])
-    for dims in chains:
-        q = _random_qmlp(rng, dims, 64).to(dev)
-        for rows in (1, 7, 64, 100, BATCH * 64):
-            x = _rand_int8(rng, (rows, dims[0]), dev)
+    # Off K2's tiles: K0 of 5 and 130, N not a multiple of 8 mid-chain.
+    chains += [[5, 64, 32, 5], [130, 200, 64, 10], [16, 20, 13, 37, 70, 5]]
+    qs = [_random_qmlp(rng, dims, 64) for dims in chains]
+    # and jsc-m's chain with its second layer's bias dropped
+    qs.append(dataclasses.replace(qs[0], layers=tuple(
+        dataclasses.replace(l, bias_q=None) if i == 1 else l
+        for i, l in enumerate(qs[0].layers))))
+    for q in qs:
+        q, k0 = q.to(dev), q.layers[0].w_q.shape[0]
+        for rows in (1, 7, 17, 64, 100, BATCH * 64, BATCH * 64 + 1):
+            x = _rand_int8(rng, (rows, k0), dev)
             want = cascade_mlp_ref(x, q)
             err["cascade_mlp"] = max(err["cascade_mlp"],
                                      _diff(cascade_mlp(x, q), want))
@@ -303,7 +327,7 @@ def mha_plain(q, k, v):
 
 def check_flash(dev, rng) -> dict:
     """tests/test_flash_attn.py:23-28's (BH, S, d, bq, bk) list x {f32, bf16}
-    (causal), non-causal once, the ragged shapes of RAGGED_FLASH in bf16,
+    (causal), non-causal once, the ragged shapes of RAGGED_FLASH in both,
     and flash_mha at S in {96, 200, 256} with 1, 2 and 4 KV heads in f32
     and bf16."""
     from repro_torch.kernels.flash_attn import (flash_attention,
@@ -316,7 +340,7 @@ def check_flash(dev, rng) -> dict:
                                       (1, 128, 64, 64, 64),
                                       (3, 384, 128, 128, 64))]
     cases.append(("float32", (2, 256, 256, 64, 128, 128), False))
-    cases += [("bfloat16", (bh, s, t, d, s, t), causal)
+    cases += [(dt, (bh, s, t, d, s, t), causal) for dt in FLASH_TOL
               for bh, s, t, d, causal in RAGGED_FLASH]
     for dt, (bh, s, t, d, bq, bk), causal in cases:
         q = _normal(rng, (bh, s, d), dev, dt)
@@ -591,6 +615,15 @@ def time_flash(paths: dict, err: dict) -> list:
         q4, k4, v4 = (t.view(b, h, s, hd) for t in (qf, kf, vf))
         lt = _time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True), iters=5, warmup=1, graph=False)
+        # Which arithmetic the yardstick uses: SDPA's own error against the
+        # plain version (f32 scores and softmax) on the same inputs.
+        lib_err = float((F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True).view_as(qf).float()
+            - flash_attention_ref(qf, kf, vf, causal=True).float())
+            .abs().max())
+        print(f"[time] flash_attn_{dt}: SDPA's own max |err| against the "
+              f"plain version {lib_err:.3e} (the kernel's "
+              f"{err[f'flash_attn_{dt}']:.3e})")
         nbytes = 4 * qf.numel() * qf.element_size()
         ops = 4 * hd * b * h * s * (s + 1) // 2
         out.append(dict(name=f"flash_attn_{dt}", route="cuda",
@@ -599,7 +632,8 @@ def time_flash(paths: dict, err: dict) -> list:
                         launches=paths[f"flash_attn_{dt}"],
                         max_abs_err=err[f"flash_attn_{dt}"], ms=kt["ms"],
                         eager_ms=kt["eager_ms"], plain_ms=pt["ms"],
-                        library_ms=lt["ms"], **_bound(nbytes, ops, peak),
+                        library_ms=lt["ms"], library_max_abs_err=lib_err,
+                        **_bound(nbytes, ops, peak),
                         tflops=ops / (kt["ms"] * 1e-3) / 1e12,
                         shape=f"qwen3-14b attention, B*H={b * h}, S=T={s}, "
                               f"hd={hd}, {dt}, causal"))
@@ -667,6 +701,21 @@ def time_kernels(dev, runs: dict, err: dict, paths: dict) -> list:
                     eager_ms=kt["eager_ms"], plain_ms=pt["ms"], library_ms=None,
                     **_bound(x.numel() + wb + rows * n_out, ops),
                     shape=f"jsc-m, {rows} rows"))
+    k1, k2 = out
+    print(f"[time] cascade_mlp (one launch) {k2['ms'] * 1e3:.3f} us vs mm_int8's "
+          f"{len(layers)} launches {k1['ms'] * 1e3:.3f} us on the same jsc-m "
+          f"batch: fused/unfused {k2['ms'] / k1['ms']:.3f}")
+    # K2's cost a layer: jsc-m's widths at 2, 5 and 9 layers (32-wide ones
+    # added in the middle), random weights, the same 4096 rows.
+    depth = {}
+    for dims in ([16, 64, 5], [16, 64, 32, 32, 32, 5],
+                 [16, 64] + [32] * 7 + [5]):
+        qd = _random_qmlp(rng, dims, 64).to(dev)
+        _diff(cascade_mlp(x, qd), cascade_mlp_ref(x, qd))
+        depth[len(dims) - 1] = _time_ms(lambda: cascade_mlp(x, qd))["ms"] * 1e3
+    print(f"[time] cascade_mlp by depth, {rows} rows: " + ", ".join(
+        f"{n} layers {t:.3f} us" for n, t in depth.items())
+          + f"; {(depth[9] - depth[5]) / 4:.3f} us a 32-wide layer")
 
     # K3: one served deepsets-32 batch of 64 events.
     run = runs["deepsets-32 fused"]

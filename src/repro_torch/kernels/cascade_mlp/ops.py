@@ -2,8 +2,9 @@
 
 A CPU tensor goes to the plain versions in ``ref.py``; a CUDA tensor
 launches ``csrc/cascade_mlp.cu`` or raises. Each model's weights are packed
-once per model object into the layout the kernels copy into shared memory
-(see :func:`packed_chain`) and cached beside it.
+once per model object into the layouts the kernels copy into shared memory
+and cached beside it: :func:`packed_chain` for K3's ``__dp4a`` layers and
+:func:`packed_mma_chain` for K2's tensor-core fragments.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import ctypes
 import dataclasses
 import threading
 import weakref
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +24,8 @@ from repro_torch.quant import QuantizedMLP
 from .ref import cascade_mlp_ref, deepsets_ref
 
 MAX_LAYERS = 16                 # REPRO_MAX_LAYERS in csrc/int8_chain.cuh
-BLOCK_ROWS = 64                 # rows a cascade_mlp block carries
+BLOCK_ROWS = 32                 # rows a cascade_mlp block carries: two warps
+                                # of 16, so a 4096-row batch fills 128 SMs
 
 
 def _round_up(a: int, b: int) -> int:
@@ -34,28 +36,32 @@ def _round_up(a: int, b: int) -> int:
 class PackedChain:
     """A layer chain in the kernels' layout, on the model's device.
 
-    ``w``: every layer's w^T (N, ks) int8, K zero-padded to ``ks`` bytes
-    (``ks / 4`` odd), each layer 16-byte aligned. ``b``: the int32 biases,
-    padded to a multiple of 4. ``meta``: the host ints the C entry points
-    read (see ``chain_from_meta`` in ``csrc/int8_chain.cuh``).
+    ``w``: every layer's w^T int8, K zero-padded to ``ks`` bytes, each layer
+    16-byte aligned. ``b``: the int32 biases, padded to a multiple of 4.
+    ``meta``: the host ints the C entry points read (see ``chain_from_meta``
+    in ``csrc/int8_chain.cuh``). Two layouts (``ChainLayer`` there):
+
+    * dp4a (K3): w^T (N, ks), ``ks / 4`` odd; biases back to back.
+    * mma (K2): w^T (N8, ks), N zero-padded to N8 = a multiple of 8 and K to
+      kp = a multiple of 32, ``ks = kp + 16``; each bias zero-padded to N8.
+
+    ``stride`` is the activation row in bytes: for dp4a the widest layer
+    rounded so ``stride / 4`` is odd, for mma the widest kp plus 16 (so
+    ``stride / 4`` = 4 mod 8: a fragment load hits 32 distinct banks).
     """
 
     w: torch.Tensor
     b: torch.Tensor
     meta: ctypes.Array
     widths: Tuple[int, ...]     # K0, then every layer's N
+    stride: int
 
     @property
     def smem_bytes(self) -> int:
         return self.w.numel() + 4 * self.b.numel()
 
-    @property
-    def stride(self) -> int:
-        """Widest activation row in bytes, rounded so stride / 4 is odd."""
-        return 4 * ((_round_up(max(self.widths), 4) // 4) | 1)
 
-
-def _pack(qmlp: QuantizedMLP) -> PackedChain:
+def _pack(qmlp: QuantizedMLP, mma: bool) -> PackedChain:
     layers = qmlp.layers
     if not 1 <= len(layers) <= MAX_LAYERS:
         raise ValueError(f"the kernels take 1..{MAX_LAYERS} layers, "
@@ -71,10 +77,14 @@ def _pack(qmlp: QuantizedMLP) -> PackedChain:
             raise ValueError(f"layer widths do not chain: {widths[-1]} -> {k}")
         if not 0 <= l.shift <= MAX_SHIFT:
             raise ValueError(f"shift must be in 0..{MAX_SHIFT}, got {l.shift}")
-        kp, np_ = _round_up(k, 4), _round_up(n, 4)
-        ks = 4 * ((kp // 4) | 1)
-        wt = np.zeros((n, ks), np.int8)
-        wt[:, :k] = l.w_q.cpu().numpy().T
+        if mma:
+            kp, np_ = _round_up(k, 32), _round_up(n, 8)
+            ks, w_rows = kp + 16, np_
+        else:
+            kp, np_ = _round_up(k, 4), _round_up(n, 4)
+            ks, w_rows = 4 * ((kp // 4) | 1), n
+        wt = np.zeros((w_rows, ks), np.int8)
+        wt[:n, :k] = l.w_q.cpu().numpy().T
         flat = wt.reshape(-1)
         w_parts.append(np.pad(flat, (0, _round_up(flat.size, 16) - flat.size)))
         has_bias = l.bias_q is not None
@@ -82,41 +92,59 @@ def _pack(qmlp: QuantizedMLP) -> PackedChain:
                  w_off, b_off]
         w_off += w_parts[-1].size
         if has_bias:
-            b_parts.append(l.bias_q.cpu().numpy().astype(np.int32))
-            b_off += n
+            bias = l.bias_q.cpu().numpy().astype(np.int32)
+            b_parts.append(np.pad(bias, (0, np_ - n)) if mma else bias)
+            b_off += b_parts[-1].size
         widths.append(n)
     b = np.concatenate(b_parts) if b_parts else np.zeros(0, np.int32)
     b = np.pad(b, (0, _round_up(b.size, 4) - b.size))
     header = [len(layers), w_off, b.size]
+    if mma:
+        stride = _round_up(max(widths[:-1]), 32) + 16
+    else:
+        stride = 4 * ((_round_up(max(widths), 4) // 4) | 1)
     dev = qmlp.device
     return PackedChain(
         w=torch.from_numpy(np.concatenate(w_parts)).to(dev),
         b=torch.from_numpy(b).to(dev),
         meta=(ctypes.c_int * (len(header) + len(meta)))(*header, *meta),
-        widths=tuple(widths))
+        widths=tuple(widths), stride=stride)
 
 
-_packed: "weakref.WeakKeyDictionary[QuantizedMLP, PackedChain]" = \
+# model -> {mma: PackedChain}, one entry a layout.
+_packed: "weakref.WeakKeyDictionary[QuantizedMLP, Dict[bool, PackedChain]]" = \
     weakref.WeakKeyDictionary()
 _packed_lock = threading.Lock()
 
 
-def packed_chain(qmlp: QuantizedMLP) -> PackedChain:
-    """``qmlp`` packed for the kernels, built once per model object."""
+def _cached(qmlp: QuantizedMLP, mma: bool) -> PackedChain:
     with _packed_lock:
-        p = _packed.get(qmlp)
+        layouts = _packed.setdefault(qmlp, {})
+        p = layouts.get(mma)
         if p is None:
-            p = _packed[qmlp] = _pack(qmlp)
+            p = layouts[mma] = _pack(qmlp, mma)
         return p
 
 
+def packed_chain(qmlp: QuantizedMLP) -> PackedChain:
+    """``qmlp`` packed for K3's ``__dp4a`` layers, once per model object."""
+    return _cached(qmlp, mma=False)
+
+
+def packed_mma_chain(qmlp: QuantizedMLP) -> PackedChain:
+    """``qmlp`` packed for K2's tensor-core fragments, once per model
+    object."""
+    return _cached(qmlp, mma=True)
+
+
 def prepare(*models: Optional[QuantizedMLP]) -> None:
-    """Packs each model that lies on CUDA for the fused kernels now, so that
-    its first launch does not pay for it. CPU models run the plain versions
-    and need nothing; ``None`` is skipped."""
+    """Packs each model that lies on CUDA in both layouts now, so that its
+    first launch does not pay for it. CPU models run the plain versions and
+    need nothing; ``None`` is skipped."""
     for q in models:
         if q is not None and q.device.type == "cuda":
             packed_chain(q)
+            packed_mma_chain(q)
 
 
 def _check_input(x: torch.Tensor, qmlp: QuantizedMLP, ndim: Tuple[int, ...]):
@@ -141,8 +169,9 @@ def cascade_mlp(x: torch.Tensor, qmlp: QuantizedMLP) -> torch.Tensor:
     if _build.on_cpu(x, qmlp.layers[0].w_q):
         return cascade_mlp_ref(x, qmlp)
     _build.require_contiguous(x=x)
-    pc = packed_chain(qmlp)
+    pc = packed_mma_chain(qmlp)
     stride = pc.stride
+    # Weights, biases, and each warp's two 16-row activation buffers.
     smem = pc.smem_bytes + 2 * BLOCK_ROWS * stride
     _check_smem(smem)
     rows = x.shape[0]

@@ -8,52 +8,137 @@
 // What bounds them here: the jet models are tiny (19 KB of weights for
 // jsc-xl, about 4 KB for deepsets-32), so a served batch of 64 events reads
 // some 50-100 KB and does 10-50 M int8 operations: the bound from bytes
-// (the larger one) is tens of nanoseconds, and the launch (microseconds)
-// dominates. The design therefore spends nothing on tensor cores or
-// pipelining and puts the whole chain into one launch for the whole batch:
-//  * K2: the grid runs over blocks of 64 rows of the (B*M, K0) input. Each
-//    block copies all packed weights and biases into dynamic shared memory
-//    once, then carries its rows through every layer: an int32 accumulator
-//    in registers (__dp4a over int8x4 words), the int8 activation
-//    ping-ponging between two shared buffers. The legality rule is that this
-//    working set fits one block's 227 KB; the wrapper checks it.
-//  * K3: one block per event. phi runs over the Mp rows of the event padded
-//    with zero rows to a power of two (the padded rows contribute phi(0), as
-//    in the JAX wrapper), the set is summed per column in int32 in shared
-//    memory (the ones-row MAC of the TPU kernel), requantized by log2(Mp)
-//    for 'mean' and 'sum' alike, and rho runs on the one aggregated row.
+// (the larger one) is tens of nanoseconds (27 ns for a 4096-row jsc-m
+// batch), and the launch and the chain of dependent steps inside it
+// (microseconds) dominate. Each layer needs the whole previous one, so the
+// time is latency: one round trip to device memory for the input and the
+// weights, then per layer a few dependent shared-memory reads, products
+// and an epilogue.
+//  * K2 (cascade_mlp_kernel): the products on the tensor cores, mma.sync
+//    m16n8k32 s8.s8.s32 without .satfinite (the int32 sums wrap as the plain
+//    version's do). A warp carries 16 rows through every layer: A fragments
+//    from its own slice of shared memory, B fragments from the weights
+//    (packed by the host in the mma layout of int8_chain.cuh, K zero-padded
+//    to 32 and N to 8), bias by wrap_add, ReLU and requant_sat8 straight
+//    from the accumulator fragments, the int8 result stored back to the
+//    warp's other activation buffer (rows 16*odd bytes apart, so a fragment
+//    load hits 32 distinct banks) under __syncwarp() only; the last layer
+//    stores to device memory with masks for ragged rows and N. Two warps a
+//    block, so a 4096-row batch is 128 blocks, one wave on 132 SMs. The
+//    weights, the biases and the x rows (16-byte copies where K0 % 16 == 0
+//    and x is aligned, else bytes) arrive by cp.async in one round trip,
+//    and the block's one barrier follows them. wgmma would not pay: at
+//    K <= 130 and N <= 200 a layer is one to five k-steps of at most 25
+//    n-tiles, and a 64-row warpgroup tile would idle three quarters of a
+//    block of jsc-m rows while adding an asynchronous pipeline with nothing
+//    to hide. The legality rule is that weights, biases and the activation
+//    slices fit one block's 227 KB; the wrapper checks it.
+//  * K3 (deepsets_kernel): one block per event, 256 threads. phi runs over
+//    the Mp rows of the event padded with zero rows to a power of two (the
+//    padded rows contribute phi(0), as in the JAX wrapper), the set is
+//    summed per column in int32 in shared memory (the ones-row MAC of the
+//    TPU kernel), requantized by log2(Mp) for 'mean' and 'sum' alike, and
+//    rho runs on the one aggregated row; each layer is __dp4a over int8x4
+//    words (dense_layer), the int8 activation ping-ponging between two
+//    shared buffers.
 #include "int8_chain.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(REPRO_THREADS)
+constexpr int kWarpRows = 16;  // rows a warp carries through the chain
+
+__global__ void __launch_bounds__(128)
 cascade_mlp_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wpk,
                    const int* __restrict__ bpk, const __grid_constant__ Chain c,
-                   int8_t* __restrict__ out, int rows, int k0, int block_rows,
-                   int stride) {
+                   int8_t* __restrict__ out, int rows, int k0, int stride,
+                   int xvec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* ws = reinterpret_cast<int8_t*>(smem);
-  int* bs = reinterpret_cast<int*>(smem + c.w_bytes);
-  int8_t* a = reinterpret_cast<int8_t*>(bs + c.b_count);
-  int8_t* b = a + block_rows * stride;
-  copy16(ws, wpk, c.w_bytes);
-  copy16(bs, bpk, c.b_count * 4);
+  const int8_t* ws = reinterpret_cast<const int8_t*>(smem);
+  const int* bs = reinterpret_cast<const int*>(smem + c.w_bytes);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = (blockIdx.x * (blockDim.x / 32) + warp) * kWarpRows;
+  int8_t* in = reinterpret_cast<int8_t*>(smem + c.w_bytes + 4 * c.b_count) +
+               warp * 2 * kWarpRows * stride;
+  int8_t* nxt = in + kWarpRows * stride;
 
-  const int r0 = blockIdx.x * block_rows;
-  const int nr = min(block_rows, rows - r0);
-  const int8_t* xb = x + static_cast<size_t>(r0) * k0;
-  for (int i = threadIdx.x; i < nr * stride; i += blockDim.x) {
-    const int r = i / stride, kk = i - r * stride;
-    a[i] = kk < k0 ? xb[r * k0 + kk] : 0;
+  for (int i = threadIdx.x; i < c.w_bytes / 16; i += blockDim.x)
+    cp_async16(smem + 16 * i, wpk + 16 * i, 16);
+  for (int i = threadIdx.x; i < c.b_count / 4; i += blockDim.x)
+    cp_async16(smem + c.w_bytes + 16 * i, bpk + 4 * i, 16);
+  // The warp's 16 rows of x, zero past the batch: lane r % 16 takes row r,
+  // the two half-warps alternate over its 16-byte chunks (or bytes).
+  {
+    const int r = lane % kWarpRows, half = lane / kWarpRows;
+    const bool ok = r0 + r < rows;
+    const int8_t* xr = x + static_cast<size_t>(ok ? r0 + r : 0) * k0;
+    int8_t* dst = in + r * stride;
+    if (xvec) {
+      for (int cc = 16 * half; cc < k0; cc += 32)
+        cp_async16(dst + cc, xr + cc, ok ? 16 : 0);
+    } else {
+      for (int kk = half; kk < k0; kk += 2) dst[kk] = ok ? xr[kk] : 0;
+    }
   }
+  cp_async_wait_all();
   __syncthreads();
+  if (r0 >= rows) return;
 
-  const int8_t* y = run_chain(c, ws, bs, a, b, nr, stride);
-  const int n_out = c.layer[c.n_layers - 1].n;
-  int8_t* ob = out + static_cast<size_t>(r0) * n_out;
-  for (int i = threadIdx.x; i < nr * n_out; i += blockDim.x) {
-    const int r = i / n_out;
-    ob[i] = y[r * stride + (i - r * n_out)];
+  // Columns past K of the activations may hold anything: the packed
+  // weights are zero there, and an integer product with 0 is 0.
+  const int g = lane / 4, t = lane % 4;
+  for (int l = 0; l < c.n_layers; ++l) {
+    const ChainLayer L = c.layer[l];  // one copy a layer, its loads at once
+    const bool last = l + 1 == c.n_layers;
+    const int8_t* wt = ws + L.w_off;
+    const int* bias = bs + L.b_off;
+    for (int n0 = 0; n0 < L.np; n0 += 64) {  // eight n-tiles a pass
+      int acc[8][4] = {};
+      for (int kb = 4 * t; kb < L.kp; kb += 32) {
+        const int a[4] = {word_at(in + g * stride + kb),
+                          word_at(in + (g + 8) * stride + kb),
+                          word_at(in + g * stride + kb + 16),
+                          word_at(in + (g + 8) * stride + kb + 16)};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (n0 + 8 * j >= L.np) break;
+          const int8_t* wc = wt + (n0 + 8 * j + g) * L.ks + kb;
+          const int b[2] = {word_at(wc), word_at(wc + 16)};
+          mma_s8(acc[j], a, b);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        if (n0 + 8 * j >= L.np) break;
+        // Biases are zero-padded to np, so col + 1 is always readable.
+        const int b0 = L.has_bias ? bias[col] : 0;
+        const int b1 = L.has_bias ? bias[col + 1] : 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int v0 = wrap_add(acc[j][2 * h], b0);
+          int v1 = wrap_add(acc[j][2 * h + 1], b1);
+          if (L.relu) {
+            v0 = max(v0, 0);
+            v1 = max(v1, 0);
+          }
+          const int8_t y0 = requant_sat8(v0, L.shift);
+          const int8_t y1 = requant_sat8(v1, L.shift);
+          const int row = g + 8 * h;
+          if (!last) {
+            *reinterpret_cast<char2*>(nxt + row * stride + col) =
+                make_char2(y0, y1);
+          } else if (r0 + row < rows) {
+            int8_t* y = out + static_cast<size_t>(r0 + row) * L.n + col;
+            if (col < L.n) y[0] = y0;
+            if (col + 1 < L.n) y[1] = y1;
+          }
+        }
+      }
+    }
+    __syncwarp();  // the layer's output is written; its input is read
+    int8_t* tmp = in;
+    in = nxt;
+    nxt = tmp;
   }
 }
 
@@ -120,12 +205,15 @@ extern "C" int cascade_mlp_launch(const void* x, const void* w, const void* b,
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(cascade_mlp_kernel),
                                smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (block_rows % kWarpRows != 0 || block_rows > 4 * kWarpRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int xvec = k0 % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int grid = (rows + block_rows - 1) / block_rows;
-  cascade_mlp_kernel<<<grid, REPRO_THREADS, smem_bytes,
+  cascade_mlp_kernel<<<grid, 32 * (block_rows / kWarpRows), smem_bytes,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const int*>(b), c, static_cast<int8_t*>(out), rows, k0,
-      block_rows, stride);
+      stride, xvec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,7 +16,9 @@
 // this changes no bit), only the diagonal tile and a ragged last tile pay
 // for the mask, and the query tiles with the most key tiles start first.
 // The head dim is a template parameter, 64, 128 or 256; a narrower head is
-// zero-padded in shared memory, which adds exact zeros to the scores.
+// zero-padded in shared memory, which adds exact zeros to the scores. Both
+// kernels load with 16-byte granules, so the wrapper (flash_attn/ops.py)
+// pads d to a multiple of 4 (f32) or 8 (bf16) and copies a misaligned view.
 //
 // What bounds it: 4*d operations for every visible (query, key) pair
 // against 16*d bytes a row for q, k, v and o (8*d in bf16), so at the
@@ -24,18 +26,42 @@
 // operations: the FP32 units (67 TFLOP/s) for f32, the bf16 tensor cores
 // (989 TFLOP/s) for bf16.
 //
-// f32 (flash_attn_kernel). Everything in f32 on the FMA units, as the Pallas
-// kernel computes it after casting up. One block of 256 threads per (bh,
-// 64-query tile), the query tile resident in shared memory and each 64-key
-// tile of K and V loaded into shared memory in turn (dynamic shared memory,
-// above 48 KB, so cudaFuncSetAttribute). A thread owns a 4x4 patch of the
-// score tile and the same 4 query rows of the output, so its rows' (m, l)
-// stay in registers and the row max and sum need only shuffles across the
-// 16 threads of a row. Both products are register-blocked, reading float4
-// words from shared memory with row strides chosen so that a warp hits
-// distinct banks. The probabilities pass from the score product to the
-// value product through shared memory, in the buffer of the K tile, which
-// is dead by then.
+// f32 (flash_attn_kernel). Everything in f32 FMA on the FP32 units, as the
+// Pallas kernel computes it after casting up. What holds an FP32 product
+// back is the shared-memory traffic and the instructions beside the FMAs,
+// so the design is a register-blocked SIMT GEMM twice over:
+//  * One block of 8 warps per (bh, query tile), one block an SM, so a
+//    thread may hold 255 registers: the largest register patches pay most
+//    (a ninth, loading warp, which caps them at 168, spilled; 12 or 16 warps
+//    of 8 rows, with smaller patches, ran 10-13% slower at hd = 128). A
+//    warp owns R query rows through both products; a thread owns 8 of
+//    them (rows ty + WR*i), an 8 x TN patch of the score tile (keys
+//    tx + WC*j) and the 8 x TC patch of the output with the same rows
+//    (columns 4*tx + 4*WC*h ...). Per float4 step of d the score product
+//    reads 8 + TN float4 words for 32*TN FMAs, and per 4 keys the value
+//    product 8 + TC float4 words for 32*TC FMAs (8 x 4 and 8 x 8 patches,
+//    12 and 16 words, at hd = 128).
+//  * Q, then K_0, V_0, K_1, V_1, ... arrive by 16-byte cp.async (zero-filled
+//    past the sequence and past d), each thread copying its share, through
+//    a ring of three tile buffers: a thread done with tile n copies tile
+//    n + 2 into the buffer of tile n - 1, so each copy has the time of a
+//    whole product to land. A tile's copies complete on its buffer's
+//    "full" mbarrier (cp.async.mbarrier.arrive); every thread arrives on
+//    the buffer's "empty" mbarrier when it is done with the tile and waits
+//    on it before it refills the buffer, one tile later than it could.
+//    The block has one block-wide barrier, after the mbarriers are set up.
+//  * P passes from the score product to the value product through a slice
+//    of shared memory private to its warp, under __syncwarp() only; the
+//    row max is reduced over the WC threads of a row with shuffles, the
+//    row sum is kept per thread and reduced once at the end.
+//  * Rows of Q, K and V are HD + 4 floats apart and rows of P BK + 16, so
+//    the float4 reads of a warp hit distinct banks (or one word, broadcast).
+//  * Tiles (R rows a warp, BQ = 8R query rows a block, BK keys a tile):
+//    R = 16, BK = 64 at HD = 64 and 128 (125 / 205 KB of shared memory);
+//    R = 8, BK = 32 at HD = 256 (175 KB), where a thread scores one key
+//    and keeps four partial sums of its 256-term dot. 227 KB is the limit.
+//  A warp whose rows all lie above a key tile (causal) or past S skips its
+//  products but still copies, waits and arrives on the tile's mbarriers.
 //
 // bf16 (flash_attn_bf16_kernel). Both products on the tensor cores with
 // Hopper's warpgroup MMA (wgmma.mma_async m64n64k16, bf16 in, f32
@@ -72,205 +98,367 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;      // query rows a block carries
-constexpr int kBlockK = 64;      // keys in one tile of K and V
-constexpr int kThreads = 256;    // 16 x 16: tx over keys / columns, ty over rows
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// Rows row0 .. row0 + kRows - 1 of an (n, d) matrix into shared memory as
-// f32 with row stride ld; zero for rows >= n and for columns d .. HD - 1.
-template <typename T, int HD, int kRows>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int row0, int n, int d) {
-  for (int i = threadIdx.x; i < kRows * HD; i += kThreads) {
-    const int r = i / HD, c = i % HD, g = row0 + r;
-    dst[r * ld + c] =
-        (g < n && c < d) ? to_f32(src[static_cast<size_t>(g) * d + c]) : 0.f;
+// Hopper's tensor memory accelerator: one thread asks for a box of a 3-D
+// tensor map (d, rows, bh) to be copied into shared memory, swizzled as the
+// map says; the copy counts its bytes off an mbarrier in shared memory.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(bh)
+      : "memory");
+}
+
+// Asynchronous copies into shared memory: 16 bytes a thread with cp.async,
+// zero-filled past `src_bytes` and counted off an mbarrier when they land.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// The mbarrier's arrival count includes this thread, which arrives once all
+// of its earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// ---- f32 on the FP32 units -------------------------------------------------
+
+constexpr int kRing = 3;  // K/V tile buffers
+
+template <int HD>
+struct F32Tiles {
+  static constexpr int W = 8;                   // warps a block
+  static constexpr int kThreads = 32 * W;
+  static constexpr int R = HD <= 128 ? 16 : 8;  // query rows a warp owns
+  static constexpr int BQ = W * R;              // query rows a block
+  static constexpr int BK = HD <= 128 ? 64 : 32;  // keys a tile
+  static constexpr int WR = R / 8;              // row groups of a warp
+  static constexpr int WC = 32 / WR;            // threads along keys, columns
+  static constexpr int TN = BK / WC;            // keys a thread scores
+  static constexpr int TC = HD / WC;            // output columns a thread owns
+  static constexpr int LD = HD + 4;             // Q, K, V row stride (floats)
+  static constexpr int LDP = BK + 16;           // P row stride (floats)
+  static constexpr int kQ = BQ * LD;            // floats of the Q tile
+  static constexpr int kTile = BK * LD;         // floats of a K or V tile
+  static constexpr int kP = R * LDP;            // floats of a warp's P
+  static constexpr int smem_bytes = 4 * (kQ + kRing * kTile + W * kP);
+  static_assert(TC % 4 == 0 && TN >= 1, "a thread owns float4 columns");
+  static_assert(smem_bytes <= 227 * 1024, "one block's shared memory");
+};
+
+// Rows row0 .. row0 + kRows - 1 of an (n, d) f32 matrix into shared memory at
+// `dst` (rows LD floats apart), zero past row n and past column d, in
+// 16-byte copies shared out over `kLanes` threads (this one is `lane`); then
+// `bar` counts this thread's copies.
+template <int HD, int LD, int kRows, int kLanes>
+__device__ __forceinline__ void load_rows(uint32_t dst, const float* src,
+                                          int row0, int n, int d, int lane,
+                                          uint32_t bar) {
+  constexpr int kChunks = HD / 4;  // 16-byte chunks a row, a power of two
+  static_assert(kRows * kChunks % kLanes == 0, "whole passes");
+#pragma unroll
+  for (int it = 0; it < kRows * kChunks / kLanes; ++it) {
+    const int i = lane + it * kLanes;
+    const int r = i / kChunks, c = 4 * (i % kChunks), g = row0 + r;
+    const bool in = g < n && c < d;
+    cp_async16(dst + 4 * (r * LD + c),
+               in ? src + static_cast<size_t>(g) * d + c : src, in ? 16 : 0);
+  }
+  cp_async_arrive(bar);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(F32Tiles<HD>::kThreads, 1)
+flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  int s_len, int t_len, int d, int causal, float scale) {
+  using F = F32Tiles<HD>;
+  constexpr int R = F::R, BK = F::BK, WR = F::WR, WC = F::WC, TN = F::TN,
+                TC = F::TC, LD = F::LD, LDP = F::LDP;
+  extern __shared__ __align__(16) float smem[];
+  // The Q tile's mbarrier, then a "full" and an "empty" one a ring buffer.
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kRing];
+  float* qs = smem;
+  float* ring = qs + F::kQ;
+  const uint32_t bar_q = smem_addr(bars), bar_full = bar_q + 8,
+                 bar_empty = bar_full + 8 * kRing;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * F::BQ;  // longest first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t qoff = static_cast<size_t>(bh) * s_len * d;
+  const size_t koff = static_cast<size_t>(bh) * t_len * d;
+  int n_tiles = (t_len + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + F::BQ, s_len) - 1) / BK + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, F::kThreads);
+    for (int b = 0; b < kRing; ++b) {
+      mbar_init(bar_full + 8 * b, F::kThreads);
+      mbar_init(bar_empty + 8 * b, F::kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Tile n of the sequence K_0, V_0, K_1, V_1, ... goes to ring buffer
+  // n % kRing; every thread copies its share of it. Tiles 0 and 1 go now,
+  // and a thread that is done with tile n copies tile n + 2, into the
+  // buffer of tile n - 1, once every thread is done with that one.
+  const uint32_t ring_addr = smem_addr(ring);
+  const auto load_tile = [&](int n) {
+    const int b = n % kRing;
+    if (n >= kRing) mbar_wait(bar_empty + 8 * b, (n / kRing - 1) & 1);
+    load_rows<HD, LD, BK, F::kThreads>(
+        ring_addr + 4 * b * F::kTile, ((n & 1) ? v : k) + koff, (n >> 1) * BK,
+        t_len, d, threadIdx.x, bar_full + 8 * b);
+  };
+  load_rows<HD, LD, F::BQ, F::kThreads>(smem_addr(qs), q + qoff, q0, s_len, d,
+                                     threadIdx.x, bar_q);
+  for (int n = 0; n < 2 && n < 2 * n_tiles; ++n) load_tile(n);
+
+  const int ty = lane / WC, tx = lane % WC;
+  const int wrow0 = q0 + R * warp;              // the warp's first row
+  const float* qw = qs + (R * warp + ty) * LD;  // + WR*i*LD: row i
+  float* pw = ring + kRing * F::kTile + warp * F::kP;
+  float m[8], l[8], acc[8][TC];                 // l: this thread's part
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[i][c] = 0.f;
+  }
+  mbar_wait(bar_q, 0);
+
+  for (int j = 0, b = 0, use = 0; j < n_tiles; ++j) {
+    const int k0 = j * BK;
+    const bool live = wrow0 < s_len && (!causal || k0 <= wrow0 + R - 1);
+    float sc[8][TN];
+
+    // S = Q K_j^T for rows ty + WR*i, keys tx + WC*jn.
+    mbar_wait(bar_full + 8 * b, use & 1);
+    if (live) {
+      const float* kt = ring + b * F::kTile + tx * LD;
+      if constexpr (TN == 1) {
+        // One key a thread (hd = 256): the registers allow a partial sum a
+        // float4 lane, which shortens each 256-term chain of roundings to
+        // 64 (and the error against the exact dot by about half).
+        float4 sp[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sp[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (int c = 0; c < HD; c += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kt + c);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(qw + WR * i * LD + c);
+            sp[i].x = fmaf(qv.x, kv.x, sp[i].x);
+            sp[i].y = fmaf(qv.y, kv.y, sp[i].y);
+            sp[i].z = fmaf(qv.z, kv.z, sp[i].z);
+            sp[i].w = fmaf(qv.w, kv.w, sp[i].w);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          sc[i][0] = (sp[i].x + sp[i].y) + (sp[i].z + sp[i].w);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jn = 0; jn < TN; ++jn) sc[i][jn] = 0.f;
+#pragma unroll 8
+        for (int c = 0; c < HD; c += 4) {
+          float4 kv[TN];
+#pragma unroll
+          for (int jn = 0; jn < TN; ++jn)
+            kv[jn] = *reinterpret_cast<const float4*>(kt + WC * jn * LD + c);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(qw + WR * i * LD + c);
+#pragma unroll
+            for (int jn = 0; jn < TN; ++jn) {
+              sc[i][jn] = fmaf(qv.x, kv[jn].x, sc[i][jn]);
+              sc[i][jn] = fmaf(qv.y, kv[jn].y, sc[i][jn]);
+              sc[i][jn] = fmaf(qv.z, kv[jn].z, sc[i][jn]);
+              sc[i][jn] = fmaf(qv.w, kv[jn].w, sc[i][jn]);
+            }
+          }
+        }
+      }
+    }
+    mbar_arrive(bar_empty + 8 * b);
+    if (++b == kRing) b = 0, ++use;
+    if (2 * j + 2 < 2 * n_tiles) load_tile(2 * j + 2);
+
+    if (live) {
+      // Online softmax; scores are scaled before the mask, so any sign of
+      // scale holds.
+      const bool mask = (causal && k0 + BK - 1 > wrow0) || k0 + BK > t_len;
+      float corr[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int qpos = wrow0 + ty + WR * i;
+        float mx = kNegInf;
+#pragma unroll
+        for (int jn = 0; jn < TN; ++jn) {
+          float x = sc[i][jn] * scale;
+          if (mask) {
+            const int kpos = k0 + tx + WC * jn;
+            if (kpos >= t_len || (causal && kpos > qpos)) x = kNegInf;
+          }
+          sc[i][jn] = x;
+          mx = fmaxf(mx, x);
+        }
+#pragma unroll
+        for (int off = WC / 2; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[i], mx);
+        corr[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int jn = 0; jn < TN; ++jn) {
+          sc[i][jn] = expf(sc[i][jn] - m_new);
+          sum += sc[i][jn];
+        }
+        l[i] = corr[i] * l[i] + sum;
+      }
+      __syncwarp();                  // every lane is done with the last P
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jn = 0; jn < TN; ++jn)
+          pw[(ty + WR * i) * LDP + tx + WC * jn] = sc[i][jn];
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < TC; ++c) acc[i][c] *= corr[i];
+    }
+
+    // acc += P V_j for rows ty + WR*i, columns 4*tx + 4*WC*h + e.
+    mbar_wait(bar_full + 8 * b, use & 1);
+    if (live) {
+      const float* vt = ring + b * F::kTile + 4 * tx;
+      const float* pr = pw + ty * LDP;
+#pragma unroll 2
+      for (int jk = 0; jk < BK; jk += 4) {
+        float4 p4[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          p4[i] = *reinterpret_cast<const float4*>(pr + WR * i * LDP + jk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float4 vv[TC / 4];
+#pragma unroll
+          for (int h = 0; h < TC / 4; ++h)
+            vv[h] = *reinterpret_cast<const float4*>(vt + (jk + e) * LD +
+                                                     4 * WC * h);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float p = e == 0 ? p4[i].x
+                          : e == 1 ? p4[i].y
+                          : e == 2 ? p4[i].z
+                                   : p4[i].w;
+#pragma unroll
+            for (int h = 0; h < TC / 4; ++h) {
+              acc[i][4 * h] = fmaf(p, vv[h].x, acc[i][4 * h]);
+              acc[i][4 * h + 1] = fmaf(p, vv[h].y, acc[i][4 * h + 1]);
+              acc[i][4 * h + 2] = fmaf(p, vv[h].z, acc[i][4 * h + 2]);
+              acc[i][4 * h + 3] = fmaf(p, vv[h].w, acc[i][4 * h + 3]);
+            }
+          }
+        }
+      }
+    }
+    mbar_arrive(bar_empty + 8 * b);
+    if (++b == kRing) b = 0, ++use;
+    if (2 * j + 3 < 2 * n_tiles) load_tile(2 * j + 3);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float lt = l[i];
+#pragma unroll
+    for (int off = WC / 2; off > 0; off >>= 1)
+      lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    const int row = wrow0 + ty + WR * i;
+    if (row >= s_len) continue;
+    const float den = fmaxf(lt, 1e-30f);
+    float* orow = o + qoff + static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int h = 0; h < TC / 4; ++h) {
+      const int col = 4 * tx + 4 * WC * h;  // d is a multiple of 4
+      if (col < d)
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(acc[i][4 * h] / den, acc[i][4 * h + 1] / den,
+                        acc[i][4 * h + 2] / den, acc[i][4 * h + 3] / den);
+    }
   }
 }
 
 template <int HD>
-constexpr int smem_bytes() {
-  // Q tile, K tile (later the probabilities), V tile; rows of Q and K are
-  // HD + 4 floats apart, 16-byte aligned and four banks apart.
-  return 4 * (kBlockQ * (HD + 4) + kBlockK * (HD + 4) + kBlockK * HD);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, HD <= 128 ? 2 : 1)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int s_len,
-                  int t_len, int d, int causal, float scale) {
-  constexpr int LDQ = HD + 4;
-  constexpr int LDP = kBlockK + 4;
-  constexpr int NH = HD / 64;    // float4 column groups a thread owns in O
-  static_assert(kBlockQ * LDP <= kBlockK * LDQ, "P must fit in the K tile");
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = qs + kBlockQ * LDQ;
-  float* vs = ks + kBlockK * LDQ;
-  float* ps = ks;
-
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest first
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t qoff = static_cast<size_t>(bh) * s_len * d;
-  const size_t koff = static_cast<size_t>(bh) * t_len * d;
-  load_tile<T, HD, kBlockQ>(qs, LDQ, q + qoff, q0, s_len, d);
-
-  float m[4], l[4], acc[4][NH][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int h = 0; h < NH; ++h)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][h][c] = 0.f;
-  }
-
-  int n_tiles = (t_len + kBlockK - 1) / kBlockK;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBlockQ - 1) / kBlockK + 1);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();                 // the last tile's P and V are consumed
-    load_tile<T, HD, kBlockK>(ks, LDQ, k + koff, k0, t_len, d);
-    load_tile<T, HD, kBlockK>(vs, HD, v + koff, k0, t_len, d);
-    __syncthreads();
-
-    // Scores of rows ty*4 + i against keys tx + 16*j.
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < HD; c += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * LDQ + c);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * LDQ + c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(qv[i].x, kv[j].x, sc[i][j]);
-          sc[i][j] = fmaf(qv[i].y, kv[j].y, sc[i][j]);
-          sc[i][j] = fmaf(qv[i].z, kv[j].z, sc[i][j]);
-          sc[i][j] = fmaf(qv[i].w, kv[j].w, sc[i][j]);
-        }
-    }
-
-    // Online softmax: the row's max and sum over its 16 threads.
-    float corr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = sc[i][j] * scale;
-        if (kpos >= t_len || (causal && kpos > qpos)) x = kNegInf;
-        sc[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sc[i][j] = expf(sc[i][j] - m_new);
-        sum += sc[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      corr[i] = expf(m[i] - m_new);
-      l[i] = corr[i] * l[i] + sum;
-      m[i] = m_new;
-    }
-    __syncthreads();                 // every thread is done with the K tile
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty * 4 + i) * LDP + tx + 16 * j] = sc[i][j];
-    __syncthreads();
-
-    // acc = acc * corr + P V for rows ty*4 + i, columns 64*h + 4*tx + c.
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int h = 0; h < NH; ++h)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][h][c] *= corr[i];
-#pragma unroll 2
-    for (int j = 0; j < kBlockK; j += 4) {
-      float pv[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 p4 =
-            *reinterpret_cast<const float4*>(ps + (ty * 4 + i) * LDP + j);
-        pv[i][0] = p4.x;
-        pv[i][1] = p4.y;
-        pv[i][2] = p4.z;
-        pv[i][3] = p4.w;
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              vs + (j + jj) * HD + 64 * h + 4 * tx);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][h][0] = fmaf(pv[i][jj], vv.x, acc[i][h][0]);
-            acc[i][h][1] = fmaf(pv[i][jj], vv.y, acc[i][h][1]);
-            acc[i][h][2] = fmaf(pv[i][jj], vv.z, acc[i][h][2]);
-            acc[i][h][3] = fmaf(pv[i][jj], vv.w, acc[i][h][3]);
-          }
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= s_len) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + qoff + static_cast<size_t>(row) * d;
-#pragma unroll
-    for (int h = 0; h < NH; ++h)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = 64 * h + 4 * tx + c;
-        if (col < d) store_f32(orow + col, acc[i][h][c] / den);
-      }
-  }
-}
-
-template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int bh, int s_len, int t_len, int d, int causal,
                    float scale, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD>();
-  const auto kernel = flash_attn_kernel<T, HD>;
+  using F = F32Tiles<HD>;
+  const auto kernel = flash_attn_kernel<HD>;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (s_len + kBlockQ - 1) / kBlockQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s_len, t_len, d, causal,
-      scale);
+  // 16-byte copies need rows a multiple of 16 bytes apart and 16-byte
+  // aligned bases, which the wrapper (flash_attn/ops.py) pads and copies for.
+  if (d % 4 != 0 || ((reinterpret_cast<uintptr_t>(q) |
+                      reinterpret_cast<uintptr_t>(k) |
+                      reinterpret_cast<uintptr_t>(v) |
+                      reinterpret_cast<uintptr_t>(o)) % 16) != 0)
+    return cudaErrorInvalidValue;
+  const dim3 grid(bh, (s_len + F::BQ - 1) / F::BQ);
+  kernel<<<grid, F::kThreads, F::smem_bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), s_len, t_len, d,
+      causal, scale);
   return cudaGetLastError();
 }
 
@@ -301,44 +489,6 @@ constexpr int tc_smem_bytes() {
 __device__ __forceinline__ uint32_t swizzled(int r, int chunk, int rows) {
   return static_cast<uint32_t>((chunk >> 3) * rows * 128 + r * 128 +
                                (((chunk & 7) ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Hopper's tensor memory accelerator: one thread asks for a box of a 3-D
-// tensor map (d, rows, bh) to be copied into shared memory, swizzled as the
-// map says; the copy counts its bytes off an mbarrier in shared memory.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row,
-                                         int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
-      "r"(bh)
-      : "memory");
 }
 
 // Rows row0 .. row0 + kRows - 1 of head bh into a swizzled tile, one
@@ -670,26 +820,23 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int bh, int s_len, int t_len, int d, int causal,
-                     float scale, cudaStream_t stream) {
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
+                         int bh, int s_len, int t_len, int d, int causal,
+                         float scale, cudaStream_t stream) {
   if (d <= 64)
-    return launch<T, 64>(q, k, v, o, bh, s_len, t_len, d, causal, scale,
-                         stream);
+    return launch<64>(q, k, v, o, bh, s_len, t_len, d, causal, scale, stream);
   if (d <= 128)
-    return launch<T, 128>(q, k, v, o, bh, s_len, t_len, d, causal, scale,
-                          stream);
+    return launch<128>(q, k, v, o, bh, s_len, t_len, d, causal, scale, stream);
   if (d <= 256)
-    return launch<T, 256>(q, k, v, o, bh, s_len, t_len, d, causal, scale,
-                          stream);
+    return launch<256>(q, k, v, o, bh, s_len, t_len, d, causal, scale, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (bh, s, d), k and v (bh, t, d), o (bh, s, d), all contiguous, f32 or
-// (bf16 != 0) bf16; 0 < d <= 256.
+// q (bh, s, d), k and v (bh, t, d), o (bh, s, d), all contiguous and
+// 16-byte aligned, f32 (d a multiple of 4) or (bf16 != 0) bf16 (d a multiple
+// of 8); 0 < d <= 256.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int bh, int s, int t, int d,
                                  int causal, float scale, int bf16,
@@ -697,6 +844,6 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       bf16 ? dispatch_bf16(q, k, v, o, bh, s, t, d, causal, scale, st)
-           : dispatch<float>(q, k, v, o, bh, s, t, d, causal, scale, st);
+           : dispatch_f32(q, k, v, o, bh, s, t, d, causal, scale, st);
   return static_cast<int>(err);
 }

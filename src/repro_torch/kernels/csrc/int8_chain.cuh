@@ -1,5 +1,6 @@
-// Shared device code of the INT8 kernels: the power-of-two requantization and
-// one quantized dense layer over activations held in shared memory.
+// Shared device code of the INT8 kernels: the power-of-two requantization,
+// the tensor cores' int8 product, and one quantized dense layer over
+// activations held in shared memory.
 //
 // Integer semantics follow the JAX package bit for bit: int8 x int8 products
 // accumulate in int32 (two's-complement wrap), the optional int32 bias is
@@ -13,16 +14,22 @@
 #define REPRO_MAX_LAYERS 16
 #define REPRO_THREADS 256
 
-// One layer as the host packs it. The weight is stored transposed, w^T of
-// shape (n, ks) int8, with K zero-padded to ks bytes; ks / 4 is odd, so that
-// the threads of a warp, which read neighbouring output columns, read
-// distinct shared-memory banks.
+// One layer as the host packs it, in one of two layouts
+// (cascade_mlp/ops.py). The weight is stored transposed, w^T of shape
+// (n, ks) int8, with K zero-padded to ks bytes.
+//  * dp4a layout (K3, dense_layer): kp = K rounded up to 4, np = N rounded
+//    up to 4, and ks / 4 odd, so that the threads of a warp, which read
+//    neighbouring output columns, read distinct shared-memory banks.
+//  * mma layout (K2): kp = K rounded up to 32 (an mma k-step), np = N
+//    rounded up to 8 (an mma n-tile) with zero rows and zero biases past N,
+//    and ks = kp + 16, so ks / 4 = 4 (mod 8) and the 8 columns x 4 words of
+//    a B fragment fall on 32 distinct banks.
 struct ChainLayer {
   int k;         // input width
-  int kp;        // input width rounded up to 4: the bytes the dp4a loop reads
+  int kp;        // input width as the kernel reads it (see above)
   int ks;        // row stride of w^T in bytes
   int n;         // output width
-  int np;        // output width rounded up to 4
+  int np;        // output width as the kernel writes it (see above)
   int shift;     // requantization shift, 0..30
   int relu;
   int has_bias;
@@ -68,11 +75,44 @@ __device__ __forceinline__ int8_t requant_sat8(int acc, int shift) {
   return static_cast<int8_t>(min(max(acc, -128), 127));
 }
 
+// 16 bytes from global to shared memory without a register round trip,
+// zero-filled past `src_bytes`; complete after cp_async_wait_all().
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Copies `bytes` (a multiple of 16) from global to shared memory.
 __device__ __forceinline__ void copy16(void* dst, const void* src, int bytes) {
   const int4* s = reinterpret_cast<const int4*>(src);
   int4* d = reinterpret_cast<int4*>(dst);
   for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) d[i] = s[i];
+}
+
+// The tensor cores' int8 product (K1, K2): c (16 x 8, int32) += a (16 x 32,
+// row-major) b (32 x 8, column-major), without .satfinite, so the int32 sums
+// wrap as the plain versions' do. Fragments (g = lane / 4, t = lane % 4): A
+// rows g and g + 8 of the warp's 16-row tile, k 4t..4t+3 and 16+4t..; B
+// column g of an 8-column tile, the same k; the accumulator c[e] at row
+// g + 8*(e/2), column 2t + e%2.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4],
+                                       const int (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four int8 at a 4-byte aligned address as one word.
+__device__ __forceinline__ int word_at(const int8_t* p) {
+  return *reinterpret_cast<const int*>(p);
 }
 
 // out[r, :np] = requant(relu(in[r, :kp] @ w + b)) for r < rows, where rows

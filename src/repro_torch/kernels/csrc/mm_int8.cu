@@ -43,26 +43,11 @@ constexpr int BM = 32, BN = 64, BK = 64;  // rows, columns, K bytes a slab
 constexpr int kThreads = 128;
 constexpr int SK = BK + 16;  // 80-byte rows: conflict-free fragment loads
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4],
-                                       const int (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ int word_at(const int8_t* p) {
-  return *reinterpret_cast<const int*>(p);
-}
-
 __device__ __forceinline__ int lane_of(const int4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
-// Fragments (g = lane / 4, t = lane % 4): A rows g and g + 8 of the warp's
-// 16-row tile, k 4t..4t+3 and 16+4t..; B column g of an 8-column tile, the
-// same k; the accumulator c[e] at row g + 8*(e/2), column 2t + e%2.
+// Fragments: see mma_s8 in int8_chain.cuh.
 // kWvec: w's rows are 16-byte aligned (n % 16 == 0 and an aligned base).
 template <bool kWvec>
 __global__ void __launch_bounds__(kThreads)

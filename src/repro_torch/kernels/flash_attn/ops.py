@@ -24,8 +24,11 @@ from .ref import flash_attention_ref
 MAX_HEAD_DIM = 256              # the widest tile csrc/flash_attn.cu has
 DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
-# Query rows a block carries: kBlockQ (f32) and kTcBlockQ (bf16).
-_BLOCK_Q = {torch.float32: 64, torch.bfloat16: 128}
+# Query rows a block carries (F32Tiles<HD>::BQ and kTcBlockQ in
+# csrc/flash_attn.cu): f32 128 up to d = 128 and 64 above; bf16 128.
+_BLOCK_Q = {torch.float32: (128, 64), torch.bfloat16: (128, 128)}
+# Both kernels copy 16-byte granules: d is padded to a multiple of this.
+_D_ALIGN = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def _round_up(a: int, b: int) -> int:
@@ -62,20 +65,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _launch(q, k, v, causal, scale):
     _build.require_contiguous(q=q, k=k, v=v)
     bh, s, d = q.shape
-    if -(-s // _BLOCK_Q[q.dtype]) > _MAX_GRID_Y:
+    if -(-s // _BLOCK_Q[q.dtype][d > 128]) > _MAX_GRID_Y:
         raise ValueError(f"S={s} exceeds the kernel's grid")
     if bh == 0 or s == 0:
         return torch.empty_like(q)
-    if q.dtype == torch.bfloat16:
-        # The bf16 kernel's tensor maps need rows a multiple of 16 bytes
-        # apart and 16-byte aligned bases: pad d with zero columns (they add
-        # exact zeros to the scores) and copy a misaligned view.
-        dp = _round_up(d, 8)
-        if dp != d:
-            q, k, v = (F.pad(x, (0, dp - d)) for x in (q, k, v))
-        else:
-            q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
-                       for x in (q, k, v))
+    # Both kernels load 16-byte granules (cp.async for f32, TMA for bf16),
+    # which need rows a multiple of 16 bytes apart and 16-byte aligned
+    # bases: pad d with zero columns (they add exact zeros to the scores)
+    # and copy a misaligned view.
+    dp = _round_up(d, _D_ALIGN[q.dtype])
+    if dp != d:
+        q, k, v = (F.pad(x, (0, dp - d)) for x in (q, k, v))
+    else:
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
+                   for x in (q, k, v))
     out = torch.empty_like(q)
     lib = _build.library()
     code = lib.flash_attn_launch(

@@ -19,7 +19,7 @@ from repro_torch.kernels import cascade_mlp as tcm
 from repro_torch.kernels import flash_attn as tfa
 from repro_torch.kernels import global_agg as tga
 from repro_torch.kernels import mm_int8 as tmm
-from repro_torch.quant import quantize_mlp
+from repro_torch.quant import QuantizedLinear, QuantizedMLP, quantize_mlp
 from repro_torch.serve import JetServer
 
 pytestmark = pytest.mark.cuda
@@ -116,6 +116,73 @@ def test_cascade_mlp_refuses_a_chain_above_one_block(dev):
         tcm.cascade_mlp(x, q)
 
 
+def _int8_chain(rng, dims, *, shift=7, no_bias=()):
+    """Random int8 weights and int32 biases (none for the layers in
+    ``no_bias``), ReLU between layers and none after the last."""
+    layers = []
+    for i in range(len(dims) - 1):
+        w = torch.from_numpy(rng.integers(-128, 128, (dims[i], dims[i + 1]))
+                             .astype(np.int8))
+        b = None if i in no_bias else torch.from_numpy(
+            rng.integers(-20000, 20000, dims[i + 1]).astype(np.int32))
+        layers.append(QuantizedLinear(w, b, shift, i < len(dims) - 2, 0, 0))
+    return QuantizedMLP(0, tuple(layers))
+
+
+# Chains that reach every branch of the tensor-core K2 kernel: K0 off and on
+# the 16-byte x path, widths that are no multiple of 8 or 32 mid-chain, the
+# 16 layers MAX_LAYERS allows, layers without bias, and shifts 0 and 30.
+K2_CHAINS = {
+    "k0-5": ([5, 64, 32, 5], 7, ()),
+    "k0-16": ([16, 64, 32, 32, 32, 5], 7, ()),
+    "k0-21": ([21, 32, 5], 7, ()),
+    "k0-32": ([32, 128, 64, 5], 7, ()),
+    "k0-130": ([130, 200, 64, 10], 9, ()),
+    "odd-n-mid-chain": ([16, 20, 13, 37, 70, 5], 6, ()),
+    "16-layers": ([21, 40, 24, 64, 8, 33, 16, 48, 96, 12, 32, 72, 20, 64,
+                   36, 16, 5], 7, ()),
+    "one-layer-without-bias": ([16, 64, 32, 32, 5], 7, (1,)),
+    "no-bias": ([16, 64, 5], 8, (0, 1)),
+    "shift-0": ([16, 64, 32, 5], 0, ()),
+    "shift-30": ([16, 64, 32, 5], 30, ()),
+}
+
+
+@pytest.mark.parametrize("name", list(K2_CHAINS))
+@pytest.mark.parametrize("rows", [1, 15, 16, 17, 31, 33, 4097])
+def test_cascade_mlp_tensor_core_branches_equal_plain(dev, name, rows):
+    dims, shift, no_bias = K2_CHAINS[name]
+    rng = np.random.default_rng(rows + len(dims))
+    q = _int8_chain(rng, dims, shift=shift, no_bias=no_bias).to(dev)
+    x = _int8(rng, (rows, dims[0]), dev)
+    assert torch.equal(tcm.cascade_mlp(x, q), tcm.cascade_mlp_ref(x, q))
+
+
+@pytest.mark.parametrize("k0", [16, 32])
+def test_cascade_mlp_takes_a_misaligned_view(dev, k0):
+    """K0 a multiple of 16 but x starts one byte past an alignment: the
+    byte path of the x staging."""
+    rng = np.random.default_rng(12)
+    q = _int8_chain(rng, [k0, 64, 32, 5])
+    x = _int8(rng, (1 + 100 * k0,), dev)[1:].view(100, k0)
+    assert x.data_ptr() % 16
+    q = q.to(dev)
+    assert torch.equal(tcm.cascade_mlp(x, q), tcm.cascade_mlp_ref(x, q))
+
+
+def test_cascade_mlp_saturates(dev):
+    """All 127: every sum is 127*127*K, far above int8, at every layer."""
+    layers = tuple(QuantizedLinear(
+        torch.full((k, n), 127, dtype=torch.int8),
+        torch.full((n,), 127, dtype=torch.int32), 0, True, 0, 0)
+        for k, n in ((128, 64), (64, 8)))
+    q = QuantizedMLP(0, layers).to(dev)
+    x = torch.full((40, 128), 127, dtype=torch.int8, device=dev)
+    out = tcm.cascade_mlp(x, q)
+    assert torch.equal(out, tcm.cascade_mlp_ref(x, q))
+    assert int(out.min()) == 127
+
+
 @pytest.mark.parametrize("m,agg", [(1, "mean"), (7, "mean"), (32, "sum"),
                                    (64, "mean"), (200, "sum")])
 def test_deepsets_equals_plain(dev, m, agg):
@@ -195,6 +262,35 @@ def test_flash_attention_equals_plain(dev, dtype, bh, s, t, d, causal):
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), atol=FLASH_TOL[dtype],
                                rtol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_long_sequence_equals_plain(dev, causal):
+    """S = T = 2048 at hd = 128: 32 key tiles through the f32 kernel's ring
+    of three buffers, so each buffer is refilled ten times and more."""
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (2, 2048, 128)).astype(
+        np.float32)).to(dev) for _ in range(3))
+    got = tfa.flash_attention(q, k, v, causal=causal, block_q=128,
+                              block_k=128)
+    want = tfa.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("bh,s,t,d,causal", [
+    (4, 512, 512, 128, True), (2, 512, 512, 128, False),
+    (2, 300, 130, 64, True), (1, 257, 257, 256, False)])
+def test_flash_attention_f32_large_scores_equal_plain(dev, bh, s, t, d, causal):
+    """q scaled by 8, so the scores are 8 times larger: the row max moves by
+    many units from one key tile to the next and the rescale factor
+    exp(m_old - m_new) is far from 1."""
+    rng = np.random.default_rng(14 + d)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (bh, n, d)).astype(
+        np.float32)).to(dev) for n in (s, t, t))
+    q = q * 8
+    got = tfa.flash_attention(q, k, v, causal=causal, block_q=s, block_k=t)
+    want = tfa.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
 def test_flash_mha_equals_plain(dev):
@@ -288,5 +384,6 @@ def test_server_refuses_deepsets_unfused_on_cuda(dev):
 def test_prepare_packs_cuda_models_once(dev):
     q = _qmlp(np.random.default_rng(4), [16, 32, 5]).to(dev)
     tcm.prepare(q, None)
+    assert set(tcm.ops._packed[q]) == {False, True}   # both layouts
     assert tcm.packed_chain(q) is tcm.packed_chain(q)
-    assert q in tcm.ops._packed
+    assert tcm.packed_mma_chain(q) is tcm.packed_mma_chain(q)

@@ -5,6 +5,8 @@ wrappers run their Pallas kernels in interpret mode, as the JAX package's own
 tests do. INT8 is exact, so every comparison is equality. The CUDA kernels
 themselves are held against their plain versions in test_torch_cuda.py.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -218,6 +220,44 @@ def test_packed_chain_holds_every_layer(dims):
         assert not wt[:, k:].any()
         assert (shift, bool(relu), bool(has_bias)) == (l.shift, l.relu, True)
         np.testing.assert_array_equal(b[b_off: b_off + n], l.bias_q.numpy())
+
+
+@pytest.mark.parametrize("dims,no_bias", [([16, 64, 32, 5], ()),
+                                           ([21, 20, 13, 37, 10], (1,))],
+                         ids=["jsc-m-like", "odd-widths-one-without-bias"])
+def test_packed_mma_chain_holds_every_layer(dims, no_bias):
+    """K2's tensor-core layout read back through ``meta`` as the kernel
+    reads it: w^T with N padded to a multiple of 8 and K to a multiple of 32
+    (row stride K + 16 bytes), each bias padded to N8, zero everywhere past
+    the layer; packed once per model, beside K3's layout."""
+    rng = np.random.default_rng(2)
+    _, port, _ = _models(rng, dims, 32)
+    port = QuantizedMLP(port.e_in, tuple(
+        dataclasses.replace(l, bias_q=None) if i in no_bias else l
+        for i, l in enumerate(port.layers)))
+    pc = tcm.packed_mma_chain(port)
+    assert tcm.packed_mma_chain(port) is pc
+    assert tcm.packed_chain(port) is not pc
+    meta, w, b = list(pc.meta), pc.w.numpy(), pc.b.numpy()
+    n_layers, w_bytes, b_count = meta[:3]
+    assert (n_layers, w_bytes, b_count) == (len(dims) - 1, w.size, b.size)
+    assert w_bytes % 16 == 0 and b_count % 4 == 0
+    assert pc.stride % 16 == 0 and (pc.stride // 4) % 8 == 4
+    assert pc.stride >= max(-(-k // 32) * 32 for k in dims[:-1])
+    for i, l in enumerate(port.layers):
+        k, kp, ks, n, np_, shift, relu, has_bias, w_off, b_off = \
+            meta[3 + 10 * i: 13 + 10 * i]
+        assert (k, n) == tuple(l.w_q.shape)
+        assert kp == -(-k // 32) * 32 and np_ == -(-n // 8) * 8
+        assert ks == kp + 16 and w_off % 16 == 0
+        wt = w[w_off: w_off + np_ * ks].reshape(np_, ks)
+        np.testing.assert_array_equal(wt[:n, :k].T, l.w_q.numpy())
+        assert not wt[:n, k:].any() and not wt[n:].any()
+        assert (shift, bool(relu)) == (l.shift, l.relu)
+        assert bool(has_bias) == (i not in no_bias)
+        if has_bias:
+            np.testing.assert_array_equal(b[b_off: b_off + n], l.bias_q.numpy())
+            assert not b[b_off + n: b_off + np_].any()
 
 
 def test_fusion_legality_rejects_an_oversized_chain():
