@@ -6,15 +6,17 @@
 Phases, each printing its own lines; any failure raises and exits nonzero:
   1. the card's name and power limit, as nvidia-smi reports them;
   2. the kernels' build from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a),
-     and ptxas's registers, spills and static shared memory for the
-     redesigned kernels (K1, K2, K5 in f32 and in bf16);
+     and ptxas's registers, spills and static shared memory for every
+     redesigned kernel (K1, K2, K3, both K4 kernels, K5 in f32 and in bf16);
   3. every kernel held against its plain PyTorch version on the card, over
      the shapes of the JAX package's kernel tests and the served models'
-     shapes, and K2's chains off its tensor-core tiles (K0, N not a multiple
-     of 8, a layer without bias): the INT8 kernels with torch.equal
-     (global_agg's two impls also
-     against each other), flash attention within the JAX tests' tolerance
-     (2e-5 for f32, 2e-2 for bf16);
+     shapes, K2's chains off its tensor-core tiles (K0, N not a multiple
+     of 8, a layer without bias), K3 at set sizes and batches on and off its
+     16-row tiles, 32-row passes and 2-event blocks (deepsets-32 and -64
+     widths and an odd-width chain, x aligned and not), and K4 on column
+     slices and misaligned views: the INT8 kernels with torch.equal
+     (global_agg's two impls also against each other), flash attention
+     within the JAX tests' tolerance (2e-5 for f32, 2e-2 for bf16);
   4. the serving path through ``repro_torch.launch.serve.main`` on CUDA:
      deepsets-32 fused, jsc-m fused and jsc-m unfused, each with the launch
      counts set to 0 just before and read just after; every served output
@@ -30,7 +32,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      same function, that call (``torch._int_mm``, ``torch.sum``,
      ``scaled_dot_product_attention``), which the port itself never calls;
      K2 beside K1's five launches of the same batch and at three chain
-     depths, and SDPA's own max |err| in f32 against the plain version.
+     depths; K3 for one event, at three phi depths, at 1, 2 and 4 events a
+     block and on a misaligned x; the launch floor (a 1-element zero_());
+     and SDPA's own max |err| in f32 against the plain version.
 It then prints the ``kernels`` JSON line and, last, the device JSON line.
 TF32 is off throughout, so the plain versions' f32 products are f32.
 
@@ -88,6 +92,25 @@ DESIGN = {
         "through every layer, activations in warp-private shared memory "
         "under __syncwarp; 32-row blocks, 128 for 4096 rows; weights, biases "
         "and x by cp.async, one block barrier"),
+    "deepsets": (
+        "mma.sync m16n8k32 s8.s8.s32 (no .satfinite); an event spans two "
+        "warps, each a 16-row tile of every 32 set rows through phi under "
+        "__syncwarp, meeting once at the set sum (named barrier); passes of "
+        "4/2/1 n-tiles fixed at compile time, bias in the accumulators, "
+        "cvt.pack.sat; set sum from the fragments (__shfl_xor over g); rho "
+        "on row 0 of a tile; x staged as an event's contiguous bytes, read "
+        "by funnel shift; layer records in shared memory; one block "
+        "barrier"),
+    "global_agg_mac": (
+        "one launch on the caller's matrix (any F, row stride, alignment); "
+        "8 warps a block each on an eighth of the row quads; a lane a word "
+        "of 4 columns, __byte_perm 4x4 transpose, signed __dp4a against "
+        "0x01010101; partials meet in shared memory; 128 columns a block"),
+    "global_agg_extract_add": (
+        "one launch on the caller's matrix (any F, row stride, alignment); "
+        "8 warps a block each on an eighth of the rows; a lane a column, "
+        "serial sign-extended adds; partials meet in shared memory; 32 "
+        "columns a block"),
 }
 # A second, tighter bound on flash_mha in bf16 at qwen3-14b width: the max
 # |err| over the query rows that see at least 64 keys, where |o| is small
@@ -143,7 +166,9 @@ def _random_deepsets(rng, f, phi_nodes, rho_nodes, m):
 # -- phase 2: the build -------------------------------------------------------
 
 def ptxas_report(names=("flash_attn_bf16_kernel", "flash_attn_kernel",
-                        "mm_int8_kernel", "cascade_mlp_kernel")) -> dict:
+                        "mm_int8_kernel", "cascade_mlp_kernel",
+                        "deepsets_kernel", "global_agg_mac_kernel",
+                        "global_agg_extract_add_kernel")) -> dict:
     """Registers, spills and static shared memory that ptxas reported (the
     build's ``-Xptxas=-v`` log) for every instantiation of the kernels
     named."""
@@ -246,12 +271,24 @@ def check_kernels(dev) -> dict:
             err["mm_int8"] = max(err["mm_int8"], _diff(mlp_unfused(x, q), want))
             n_cases["cascade_mlp"] += 1
 
-    for f, nodes, m_full in ((21, ([32, 32, 32], [32, 10]), 32),
-                             (21, ([64, 64, 64], [64, 10]), 64)):
-        phi, rho = _random_deepsets(rng, f, *nodes, m_full)
+    # K3: deepsets-32 and deepsets-64 widths, and a chain with widths that
+    # are no multiple of 8 and a phi layer without bias; set sizes on and off
+    # the 16-row tiles and 32-row passes, batches on and off 2-event blocks.
+    for i, (nodes, no_bias) in enumerate(((([32, 32, 32], [32, 10]), ()),
+                                          (([64, 64, 64], [64, 10]), ()),
+                                          (([20, 13, 37], [10]), (1,)))):
+        phi, rho = _random_deepsets(rng, 21, *nodes, 32)
+        phi = dataclasses.replace(phi, layers=tuple(
+            dataclasses.replace(l, bias_q=None) if j in no_bias else l
+            for j, l in enumerate(phi.layers)))
         phi, rho = phi.to(dev), rho.to(dev)
-        for m, agg in itertools.product((m_full, 7, 1), ("mean", "sum")):
-            x = _rand_int8(rng, (BATCH, m, f), dev, -40, 40)
+        for j, (m, b) in enumerate(itertools.product(
+                (1, 7, 15, 16, 17, 32, 33, 64, 200), (1, 3, BATCH, BATCH + 1))):
+            agg = ("mean", "sum")[(i + j) % 2]
+            x = _rand_int8(rng, (b, m, 21), dev, -40, 40)
+            if j % 9 == 0:      # a view one byte past an alignment
+                x = _rand_int8(rng, (1 + x.numel(),), dev, -40, 40)[1:].view(
+                    b, m, 21)
             mp = 1 << (m - 1).bit_length()
             want = deepsets_ref(F.pad(x, (0, 0, 0, mp - m)), phi, rho, agg=agg)
             err["deepsets"] = max(err["deepsets"],
@@ -267,14 +304,21 @@ def check_kernels(dev) -> dict:
 
 def check_global_agg(dev, rng) -> dict:
     """tests/test_kernels.py:109-112's grid, plus M that are no power of two,
-    x op x impl; every result equal to the plain version and mac equal to
-    extract_add."""
+    x op x impl, then column slices of a 160-wide matrix (row stride not F,
+    on and off a word) and views one byte past an alignment; every result
+    equal to the plain version and mac equal to extract_add."""
     import torch.nn.functional as F
     from repro_torch.kernels.global_agg import global_agg, global_agg_ref
     n = 0
-    for m, f in itertools.product([1, 3, 4, 7, 8, 16, 32, 64, 100],
-                                  [5, 32, 40, 64, 130]):
-        x = _rand_int8(rng, (m, f), dev)
+    inputs = [_rand_int8(rng, (m, f), dev) for m, f in itertools.product(
+        [1, 3, 4, 7, 8, 16, 32, 64, 100], [5, 32, 40, 64, 130])]
+    for m, (c0, c1) in itertools.product((1, 7, 64, 100),
+                                         ((8, 40), (3, 67), (0, 64), (4, 5))):
+        inputs.append(_rand_int8(rng, (m, 160), dev)[:, c0:c1])
+    for m, f in ((8, 128), (64, 64), (33, 21)):
+        inputs.append(_rand_int8(rng, (1 + m * f,), dev)[1:].view(m, f))
+    for x in inputs:
+        m = x.shape[0]
         for op in ("sum", "mean"):
             mp = 1 << (m - 1).bit_length() if op == "mean" else m
             want = global_agg_ref(F.pad(x, (0, 0, 0, mp - m)), op=op)
@@ -282,8 +326,9 @@ def check_global_agg(dev, rng) -> dict:
             _diff(mac, want)
             _diff(global_agg(x, op=op, impl="extract_add"), mac)
             n += 1
-    print(f"[check] global_agg: {n} cases, mac and extract_add each equal to "
-          f"the plain version on the card (max |err| 0.0)")
+    print(f"[check] global_agg: {n} cases (column slices and misaligned "
+          f"views among them), mac and extract_add each equal to the plain "
+          f"version on the card (max |err| 0.0)")
     return {"global_agg": 0.0}
 
 
@@ -553,21 +598,30 @@ def _chain_work(q, rows: int):
     return wb, ops
 
 
-def time_global_agg(paths: dict, err: dict) -> list:
-    """K4, each impl at every Table 4 shape ('sum'): the kernel alone on the
-    input padded to F = 128 (``ms``) and the wrapper's call, which pads
-    first (``call_ms``). The kernels line takes 64x64, deepsets-64's phi
-    output."""
+def time_launch_floor(dev) -> float:
+    """The device time of a 1-element zero_() in a CUDA graph of 200 calls:
+    the yardstick for K2-K4's microseconds, which the port never calls."""
     import torch
-    import torch.nn.functional as F
+    z = torch.zeros(1, device=dev)
+    t = _time_ms(lambda: z.zero_())["ms"]
+    print(f"[time] launch floor: a 1-element zero_() in a CUDA graph of 200 "
+          f"calls takes {t * 1e3:.3f} us a call")
+    return t
+
+
+def time_global_agg(paths: dict, err: dict) -> list:
+    """K4, each impl at every Table 4 shape ('sum'): the kernel launched on
+    the caller's unpadded input (``ms``) and the wrapper's call
+    (``call_ms``), the same single launch. The kernels line takes 64x64,
+    deepsets-64's phi output."""
+    import torch
     from repro_torch.kernels.global_agg import global_agg, global_agg_ref, ops
     out = []
     for impl in ("mac", "extract_add"):
         table = {}
         for m, f in TABLE4_SHAPES:
             x = paths["inputs"][(m, f)]
-            xp = F.pad(x, (0, ops.DEFAULT_BLOCK_F - f))
-            kt = _time_ms(lambda: ops._launch(xp, "sum", impl))
+            kt = _time_ms(lambda: ops._launch(x, "sum", impl, m))
             ct = _time_ms(lambda: global_agg(x, op="sum", impl=impl))
             table[f"{m}x{f}"] = {"ms": kt["ms"], "call_ms": ct["ms"],
                                  "call_eager_ms": ct["eager_ms"]}
@@ -640,6 +694,51 @@ def time_flash(paths: dict, err: dict) -> list:
         del qf, kf, vf, q4, k4, v4
         torch.cuda.empty_cache()
     return out
+
+
+def time_deepsets_shapes(dev, rng, x, phi, rho) -> dict:
+    """K3 beside the served batch ``x``: one event (the card's per-event
+    device time); phi at 2, 3 and 6 layers of width 32 (the cost of one
+    layer); 1, 2 and 4 events a block; x one byte past an alignment (the
+    byte path of the x staging). Each variant is first held against the
+    plain version."""
+    import torch
+    from repro_torch.kernels.cascade_mlp import deepsets, deepsets_ref, ops
+    one = _time_ms(lambda: deepsets(x[:1], phi, rho))["ms"]
+    print(f"[time] deepsets one event (deepsets-32, B = 1, CUDA graph): "
+          f"{one * 1e3:.3f} us on this card; the paper's 0.93 us for a 6-layer "
+          f"DeepSets was measured on an AMD VEK280, not here")
+    b, m, f = x.shape
+    depth = {}
+    for d in (2, 3, 6):
+        pd, rd = (q.to(dev) for q in _random_deepsets(rng, f, [32] * d,
+                                                      [32, 10], m))
+        _diff(deepsets(x, pd, rd), deepsets_ref(x, pd, rd))
+        depth[d] = _time_ms(lambda: deepsets(x, pd, rd))["ms"]
+    layer = (depth[6] - depth[3]) / 3
+    print(f"[time] deepsets by phi depth, {b} events x {m} x {f}, rho 32-10: "
+          + ", ".join(f"{d} layers {t * 1e3:.3f} us" for d, t in depth.items())
+          + f"; {layer * 1e3:.3f} us a 32-wide phi layer")
+    split = {}
+    for e in (1, 2, 4):
+        saved, ops.EVENTS_PER_BLOCK = ops.EVENTS_PER_BLOCK, e
+        try:
+            _diff(deepsets(x, phi, rho), deepsets_ref(x, phi, rho))
+            split[e] = _time_ms(lambda: deepsets(x, phi, rho))["ms"]
+        finally:
+            ops.EVENTS_PER_BLOCK = saved
+    print(f"[time] deepsets by events a block, {b} events: " + ", ".join(
+        f"{e} {t * 1e3:.3f} us" for e, t in split.items()))
+    xm = torch.empty(1 + x.numel(), dtype=x.dtype, device=dev)[1:].view_as(x)
+    xm.copy_(x)
+    _diff(deepsets(xm, phi, rho), deepsets_ref(x, phi, rho))
+    byte = _time_ms(lambda: deepsets(xm, phi, rho))["ms"]
+    vec = _time_ms(lambda: deepsets(x, phi, rho))["ms"]
+    print(f"[time] deepsets x staging, {b} events: 16-byte cp.async (x "
+          f"aligned) {vec * 1e3:.3f} us, bytes (x one byte off) "
+          f"{byte * 1e3:.3f} us")
+    return {"one_event_ms": one, "phi_depth_ms": depth, "phi_layer_ms": layer,
+            "events_per_block_ms": split, "byte_staging_ms": byte}
 
 
 def time_kernels(dev, runs: dict, err: dict, paths: dict) -> list:
@@ -727,18 +826,24 @@ def time_kernels(dev, runs: dict, err: dict, paths: dict) -> list:
     wb_phi, ops_phi = _chain_work(phi, b * m)
     wb_rho, ops_rho = _chain_work(rho, b)
     n_h, n_out = phi.layers[-1].w_q.shape[1], rho.layers[-1].w_q.shape[1]
-    out.append(dict(name="deepsets", route="cuda",
-                    source="src/repro_torch/kernels/csrc/cascade_mlp.cu",
-                    replaces="src/repro/kernels/cascade_mlp/cascade_mlp.py:117",
-                    launches=run["launches"].get("deepsets", 0),
-                    max_abs_err=err["deepsets"], ms=kt["ms"],
-                    eager_ms=kt["eager_ms"], plain_ms=pt["ms"], library_ms=None,
-                    **_bound(x.numel() + wb_phi + wb_rho + b * n_out,
-                             ops_phi + ops_rho + b * m * n_h),
-                    shape=f"deepsets-32, {b} events x {m} x {f}"))
+    k3 = dict(name="deepsets", route="cuda",
+              source="src/repro_torch/kernels/csrc/cascade_mlp.cu",
+              replaces="src/repro/kernels/cascade_mlp/cascade_mlp.py:117",
+              launches=run["launches"].get("deepsets", 0),
+              max_abs_err=err["deepsets"], ms=kt["ms"],
+              eager_ms=kt["eager_ms"], plain_ms=pt["ms"], library_ms=None,
+              **_bound(x.numel() + wb_phi + wb_rho + b * n_out,
+                       ops_phi + ops_rho + b * m * n_h),
+              shape=f"deepsets-32, {b} events x {m} x {f}")
+    k3.update(time_deepsets_shapes(dev, rng, x, phi, rho))
+    out.append(k3)
     out += time_global_agg(paths, err)
+    floor = time_launch_floor(dev)
     out += time_flash(paths, err)
     for k in out:
+        if k["name"] in ("cascade_mlp", "deepsets", "global_agg_mac",
+                         "global_agg_extract_add"):
+            k["launch_floor_ms"] = floor
         k["bound_share"] = k["bound_ms"] / k["ms"]
         if k["name"] in DESIGN:
             k["design"] = DESIGN[k["name"]]

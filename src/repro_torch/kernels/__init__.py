@@ -5,11 +5,14 @@
                      (``mma.sync`` s8); replaces ``mm_int8_pallas``
 * ``cascade_mlp``  — the whole INT8 layer chain in one launch with weights
                      resident in shared memory (``cascade_mlp``, K2), the
-                     fused DeepSets (``deepsets``, K3), and the per-layer
-                     chain of K1 launches (``mlp_unfused``)
-* ``global_agg``   — the INT8 set reduction (K4), as a dp4a against a ones
-                     word (``impl="mac"``) or serial row adds
-                     (``impl="extract_add"``); replaces ``global_agg_pallas``
+                     fused DeepSets (``deepsets``, K3: phi, the set sum and
+                     rho, one warp an event), both on the tensor cores
+                     (``mma.sync`` s8), and the per-layer chain of K1
+                     launches (``mlp_unfused``)
+* ``global_agg``   — the INT8 set reduction (K4), one launch on the caller's
+                     matrix, as a dp4a against a ones word (``impl="mac"``)
+                     or serial row adds (``impl="extract_add"``); replaces
+                     ``global_agg_pallas``
 * ``flash_attn``   — online-softmax attention (``flash_attention``, K5): f32
                      on the FMA units, bf16 on the tensor cores (``wgmma``,
                      f32 accumulation); and its causal GQA wrapper

@@ -33,21 +33,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 LIB_NAME = "librepro_torch_kernels.so"
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # name -> argtypes; every pointer and the stream are c_void_p.
 _SIGNATURES = {
-    # x, out, m, f, shift, mean, impl, stream
-    "global_agg_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # x, out, m, f, row_stride, shift, mean, impl, stream
+    "global_agg_launch": [_P, _P, _I, _I, _L, _I, _I, _I, _P],
     # q, k, v, o, bh, s, t, d, causal, scale, bf16, stream
     "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, w, bias, out, m, k, n, shift, relu, out_int8, stream
     "mm_int8_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w, b, meta, out, rows, k0, block_rows, stride, smem_bytes, stream
     "cascade_mlp_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, phi_w, phi_b, phi_meta, rho_w, rho_b, rho_meta, out,
-    # batch, m, mp, k0, agg_shift, stride, smem_bytes, stream
-    "deepsets_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, pack, pack_bytes, phi_meta, rho_meta, out, batch, m, mp, k0,
+    # agg_shift, stride, xraw, warp_bytes, events, smem_bytes, stream
+    "deepsets_launch": [_P, _P, _I, _P, _P, _P] + [_I] * 10 + [_P],
 }
 
 # Shared memory one block may use on sm_90 (227 KB).

@@ -2,9 +2,9 @@
 
 A CPU tensor goes to the plain versions in ``ref.py``; a CUDA tensor
 launches ``csrc/cascade_mlp.cu`` or raises. Each model's weights are packed
-once per model object into the layouts the kernels copy into shared memory
-and cached beside it: :func:`packed_chain` for K3's ``__dp4a`` layers and
-:func:`packed_mma_chain` for K2's tensor-core fragments.
+once per model object, by :func:`packed_mma_chain`, into the tensor-core
+fragment layout that both kernels copy into shared memory, and cached
+beside it.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import ctypes
 import dataclasses
 import threading
 import weakref
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +26,9 @@ from .ref import cascade_mlp_ref, deepsets_ref
 MAX_LAYERS = 16                 # REPRO_MAX_LAYERS in csrc/int8_chain.cuh
 BLOCK_ROWS = 32                 # rows a cascade_mlp block carries: two warps
                                 # of 16, so a 4096-row batch fills 128 SMs
+EVENT_WARPS = 2                 # warps a deepsets event spans, each taking
+WARP_ROWS = 16                  # 16 of every 32 set rows (kEventWarps)
+EVENTS_PER_BLOCK = 2            # events a deepsets block holds
 
 
 def _round_up(a: int, b: int) -> int:
@@ -36,17 +39,12 @@ def _round_up(a: int, b: int) -> int:
 class PackedChain:
     """A layer chain in the kernels' layout, on the model's device.
 
-    ``w``: every layer's w^T int8, K zero-padded to ``ks`` bytes, each layer
-    16-byte aligned. ``b``: the int32 biases, padded to a multiple of 4.
-    ``meta``: the host ints the C entry points read (see ``chain_from_meta``
-    in ``csrc/int8_chain.cuh``). Two layouts (``ChainLayer`` there):
-
-    * dp4a (K3): w^T (N, ks), ``ks / 4`` odd; biases back to back.
-    * mma (K2): w^T (N8, ks), N zero-padded to N8 = a multiple of 8 and K to
-      kp = a multiple of 32, ``ks = kp + 16``; each bias zero-padded to N8.
-
-    ``stride`` is the activation row in bytes: for dp4a the widest layer
-    rounded so ``stride / 4`` is odd, for mma the widest kp plus 16 (so
+    ``w``: every layer's w^T int8 (N8, ks), N zero-padded to N8 = a
+    multiple of 8 and K to kp = a multiple of 32, ``ks = kp + 16``, each
+    layer 16-byte aligned. ``b``: the int32 biases, each zero-padded to N8,
+    the whole padded to a multiple of 4. ``meta``: the host ints the C entry
+    points read (see ``chain_from_meta`` in ``csrc/int8_chain.cuh``).
+    ``stride`` is the activation row in bytes, the widest kp plus 16 (so
     ``stride / 4`` = 4 mod 8: a fragment load hits 32 distinct banks).
     """
 
@@ -61,7 +59,7 @@ class PackedChain:
         return self.w.numel() + 4 * self.b.numel()
 
 
-def _pack(qmlp: QuantizedMLP, mma: bool) -> PackedChain:
+def _pack(qmlp: QuantizedMLP) -> PackedChain:
     layers = qmlp.layers
     if not 1 <= len(layers) <= MAX_LAYERS:
         raise ValueError(f"the kernels take 1..{MAX_LAYERS} layers, "
@@ -77,13 +75,9 @@ def _pack(qmlp: QuantizedMLP, mma: bool) -> PackedChain:
             raise ValueError(f"layer widths do not chain: {widths[-1]} -> {k}")
         if not 0 <= l.shift <= MAX_SHIFT:
             raise ValueError(f"shift must be in 0..{MAX_SHIFT}, got {l.shift}")
-        if mma:
-            kp, np_ = _round_up(k, 32), _round_up(n, 8)
-            ks, w_rows = kp + 16, np_
-        else:
-            kp, np_ = _round_up(k, 4), _round_up(n, 4)
-            ks, w_rows = 4 * ((kp // 4) | 1), n
-        wt = np.zeros((w_rows, ks), np.int8)
+        kp, np_ = _round_up(k, 32), _round_up(n, 8)
+        ks = kp + 16
+        wt = np.zeros((np_, ks), np.int8)
         wt[:n, :k] = l.w_q.cpu().numpy().T
         flat = wt.reshape(-1)
         w_parts.append(np.pad(flat, (0, _round_up(flat.size, 16) - flat.size)))
@@ -93,16 +87,13 @@ def _pack(qmlp: QuantizedMLP, mma: bool) -> PackedChain:
         w_off += w_parts[-1].size
         if has_bias:
             bias = l.bias_q.cpu().numpy().astype(np.int32)
-            b_parts.append(np.pad(bias, (0, np_ - n)) if mma else bias)
+            b_parts.append(np.pad(bias, (0, np_ - n)))
             b_off += b_parts[-1].size
         widths.append(n)
     b = np.concatenate(b_parts) if b_parts else np.zeros(0, np.int32)
     b = np.pad(b, (0, _round_up(b.size, 4) - b.size))
     header = [len(layers), w_off, b.size]
-    if mma:
-        stride = _round_up(max(widths[:-1]), 32) + 16
-    else:
-        stride = 4 * ((_round_up(max(widths), 4) // 4) | 1)
+    stride = _round_up(max(widths[:-1]), 32) + 16
     dev = qmlp.device
     return PackedChain(
         w=torch.from_numpy(np.concatenate(w_parts)).to(dev),
@@ -111,39 +102,54 @@ def _pack(qmlp: QuantizedMLP, mma: bool) -> PackedChain:
         widths=tuple(widths), stride=stride)
 
 
-# model -> {mma: PackedChain}, one entry a layout.
-_packed: "weakref.WeakKeyDictionary[QuantizedMLP, Dict[bool, PackedChain]]" = \
+_packed: "weakref.WeakKeyDictionary[QuantizedMLP, PackedChain]" = \
     weakref.WeakKeyDictionary()
 _packed_lock = threading.Lock()
 
 
-def _cached(qmlp: QuantizedMLP, mma: bool) -> PackedChain:
+def packed_mma_chain(qmlp: QuantizedMLP) -> PackedChain:
+    """``qmlp`` packed for the kernels' tensor-core fragments, once per model
+    object."""
     with _packed_lock:
-        layouts = _packed.setdefault(qmlp, {})
-        p = layouts.get(mma)
+        p = _packed.get(qmlp)
         if p is None:
-            p = layouts[mma] = _pack(qmlp, mma)
+            p = _packed[qmlp] = _pack(qmlp)
         return p
 
 
-def packed_chain(qmlp: QuantizedMLP) -> PackedChain:
-    """``qmlp`` packed for K3's ``__dp4a`` layers, once per model object."""
-    return _cached(qmlp, mma=False)
+# phi -> (a weak reference to the rho it was packed with, the pair packed as
+# deepsets_kernel copies it into shared memory).
+_ds_packs: "weakref.WeakKeyDictionary[QuantizedMLP, Tuple[weakref.ref, " \
+    "torch.Tensor]]" = weakref.WeakKeyDictionary()
 
 
-def packed_mma_chain(qmlp: QuantizedMLP) -> PackedChain:
-    """``qmlp`` packed for K2's tensor-core fragments, once per model
-    object."""
-    return _cached(qmlp, mma=True)
+def _deepsets_pack(phi: QuantizedMLP, rho: QuantizedMLP) -> torch.Tensor:
+    """phi's and rho's weights, biases and layer records (the ints of
+    ``meta`` after its header) back to back, each a multiple of 16 bytes, one
+    uint8 tensor on their device: K3 copies it in one loop."""
+    with _packed_lock:
+        hit = _ds_packs.get(phi)
+        if hit is not None and hit[0]() is rho:
+            return hit[1]
+    pp, pr = packed_mma_chain(phi), packed_mma_chain(rho)
+    records = []
+    for pc in (pp, pr):
+        r = np.array(pc.meta[3:], np.int32)
+        records.append(torch.from_numpy(
+            np.pad(r, (0, _round_up(r.size, 4) - r.size))).to(pc.w.device))
+    pack = torch.cat([t.view(torch.uint8)
+                      for t in (pp.w, pr.w, pp.b, pr.b, *records)])
+    with _packed_lock:
+        _ds_packs[phi] = (weakref.ref(rho), pack)
+    return pack
 
 
 def prepare(*models: Optional[QuantizedMLP]) -> None:
-    """Packs each model that lies on CUDA in both layouts now, so that its
-    first launch does not pay for it. CPU models run the plain versions and
-    need nothing; ``None`` is skipped."""
+    """Packs each model that lies on CUDA now, so that its first launch does
+    not pay for it. CPU models run the plain versions and need nothing;
+    ``None`` is skipped."""
     for q in models:
         if q is not None and q.device.type == "cuda":
-            packed_chain(q)
             packed_mma_chain(q)
 
 
@@ -218,20 +224,31 @@ def deepsets(x: torch.Tensor, phi: QuantizedMLP, rho: QuantizedMLP, *,
 
 def _launch_deepsets(x, phi, rho, batch, m, mp, f):
     _build.require_contiguous(x=x)
-    pp, pr = packed_chain(phi), packed_chain(rho)
+    pp, pr = packed_mma_chain(phi), packed_mma_chain(rho)
     stride = max(pp.stride, pr.stride)
-    smem = pp.smem_bytes + pr.smem_bytes + 2 * mp * stride
-    _check_smem(smem)
+    # Shared memory, laid out as deepsets_kernel lays it out: the packed
+    # pair (weights, biases, layer records), then per warp two activation
+    # buffers of WARP_ROWS rows, two staged copies of its rows of x (and room
+    # for a word read past the last) and its int32 share of the set sum.
+    # Nothing grows with the set size.
+    xraw = _round_up(WARP_ROWS * f + 36, 16)
+    per_warp = (2 * WARP_ROWS * stride + 2 * xraw
+                + 4 * _round_up(pp.widths[-1], 8))
+    pack = _deepsets_pack(phi, rho)
+    fixed = pack.numel()
+    _check_smem(fixed + EVENT_WARPS * per_warp)
+    events = min(EVENTS_PER_BLOCK, max(batch, 1),
+                 (_build.MAX_SMEM_BYTES - fixed) // (EVENT_WARPS * per_warp))
     n_out = pr.widths[-1]
     out = torch.empty((batch, 1, n_out), dtype=torch.int8, device=x.device)
     if batch == 0:
         return out
     lib = _build.library()
     code = lib.deepsets_launch(
-        x.data_ptr(), pp.w.data_ptr(), pp.b.data_ptr(),
-        ctypes.addressof(pp.meta), pr.w.data_ptr(), pr.b.data_ptr(),
+        x.data_ptr(), pack.data_ptr(), fixed, ctypes.addressof(pp.meta),
         ctypes.addressof(pr.meta), out.data_ptr(), batch, m, mp, f,
-        mp.bit_length() - 1, stride, smem, _build.stream_of(x))
+        mp.bit_length() - 1, stride, xraw, per_warp, events,
+        fixed + events * EVENT_WARPS * per_warp, _build.stream_of(x))
     _build.check(code, "deepsets")
     _build.launches.add("deepsets")
     return out

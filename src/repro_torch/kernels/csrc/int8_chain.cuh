@@ -1,6 +1,6 @@
-// Shared device code of the INT8 kernels: the power-of-two requantization,
-// the tensor cores' int8 product, and one quantized dense layer over
-// activations held in shared memory.
+// Shared device code of the INT8 kernels: the layer chain as the host packs
+// it, the power-of-two requantization, cp.async, and the tensor cores' int8
+// product.
 //
 // Integer semantics follow the JAX package bit for bit: int8 x int8 products
 // accumulate in int32 (two's-complement wrap), the optional int32 bias is
@@ -12,18 +12,13 @@
 #include <cuda_runtime.h>
 
 #define REPRO_MAX_LAYERS 16
-#define REPRO_THREADS 256
 
-// One layer as the host packs it, in one of two layouts
-// (cascade_mlp/ops.py). The weight is stored transposed, w^T of shape
-// (n, ks) int8, with K zero-padded to ks bytes.
-//  * dp4a layout (K3, dense_layer): kp = K rounded up to 4, np = N rounded
-//    up to 4, and ks / 4 odd, so that the threads of a warp, which read
-//    neighbouring output columns, read distinct shared-memory banks.
-//  * mma layout (K2): kp = K rounded up to 32 (an mma k-step), np = N
-//    rounded up to 8 (an mma n-tile) with zero rows and zero biases past N,
-//    and ks = kp + 16, so ks / 4 = 4 (mod 8) and the 8 columns x 4 words of
-//    a B fragment fall on 32 distinct banks.
+// One layer as the host packs it (cascade_mlp/ops.py) for K2 and K3. The
+// weight is stored transposed, w^T of shape (np, ks) int8: kp = K rounded up
+// to 32 (an mma k-step), np = N rounded up to 8 (an mma n-tile) with zero
+// rows and zero biases past N, and ks = kp + 16, so ks / 4 = 4 (mod 8) and
+// the 8 columns x 4 words of a B fragment fall on 32 distinct banks. Zero
+// weights past K mean an activation's columns past K may hold anything.
 struct ChainLayer {
   int k;         // input width
   int kp;        // input width as the kernel reads it (see above)
@@ -88,16 +83,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Copies `bytes` (a multiple of 16) from global to shared memory.
-__device__ __forceinline__ void copy16(void* dst, const void* src, int bytes) {
-  const int4* s = reinterpret_cast<const int4*>(src);
-  int4* d = reinterpret_cast<int4*>(dst);
-  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) d[i] = s[i];
-}
-
-// The tensor cores' int8 product (K1, K2): c (16 x 8, int32) += a (16 x 32,
-// row-major) b (32 x 8, column-major), without .satfinite, so the int32 sums
-// wrap as the plain versions' do. Fragments (g = lane / 4, t = lane % 4): A
+// The tensor cores' int8 product (K1, K2, K3): c (16 x 8, int32) += a
+// (16 x 32, row-major) b (32 x 8, column-major), without .satfinite, so the
+// int32 sums wrap as the plain versions' do. Fragments (g = lane / 4, t = lane % 4): A
 // rows g and g + 8 of the warp's 16-row tile, k 4t..4t+3 and 16+4t..; B
 // column g of an 8-column tile, the same k; the accumulator c[e] at row
 // g + 8*(e/2), column 2t + e%2.
@@ -113,45 +101,4 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4],
 // Four int8 at a 4-byte aligned address as one word.
 __device__ __forceinline__ int word_at(const int8_t* p) {
   return *reinterpret_cast<const int*>(p);
-}
-
-// out[r, :np] = requant(relu(in[r, :kp] @ w + b)) for r < rows, where rows
-// are `stride` bytes apart. Columns n..np-1 are written as 0, so the next
-// layer's dp4a loop reads zeros there.
-__device__ __forceinline__ void dense_layer(const ChainLayer& L,
-                                            const int8_t* wt, const int* bias,
-                                            const int8_t* in, int8_t* out,
-                                            int rows, int stride) {
-  const int kw = L.kp >> 2, ksw = L.ks >> 2, sw = stride >> 2;
-  const int* w32 = reinterpret_cast<const int*>(wt);
-  const int* in32 = reinterpret_cast<const int*>(in);
-  for (int o = threadIdx.x; o < rows * L.np; o += blockDim.x) {
-    const int r = o / L.np, c = o - r * L.np;
-    int8_t v = 0;
-    if (c < L.n) {
-      const int* a = in32 + r * sw;
-      const int* w = w32 + c * ksw;
-      int acc = L.has_bias ? bias[c] : 0;
-      for (int k = 0; k < kw; ++k) acc = __dp4a(a[k], w[k], acc);
-      if (L.relu) acc = max(acc, 0);
-      v = requant_sat8(acc, L.shift);
-    }
-    out[r * stride + c] = v;
-  }
-}
-
-// Carries `rows` rows held in `a` through every layer of `c`, ping-ponging
-// between `a` and `b`; returns the buffer that holds the last layer's output.
-__device__ __forceinline__ int8_t* run_chain(const Chain& c, const int8_t* ws,
-                                             const int* bs, int8_t* a,
-                                             int8_t* b, int rows, int stride) {
-  for (int l = 0; l < c.n_layers; ++l) {
-    const ChainLayer& L = c.layer[l];
-    dense_layer(L, ws + L.w_off, bs + L.b_off, a, b, rows, stride);
-    __syncthreads();
-    int8_t* t = a;
-    a = b;
-    b = t;
-  }
-  return a;
 }

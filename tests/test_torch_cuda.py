@@ -7,6 +7,7 @@ skips where there is none. On a GPU machine:
 
 The file imports no JAX, so it runs where only PyTorch is installed.
 """
+import dataclasses
 import itertools
 
 import numpy as np
@@ -183,17 +184,44 @@ def test_cascade_mlp_saturates(dev):
     assert int(out.min()) == 127
 
 
+# phi and rho widths: the served deepsets-32 and deepsets-64, and a chain
+# with widths that are no multiple of 8 and a phi layer without bias.
+DEEPSETS = {"deepsets-32": ([32, 32, 32], [32, 10], ()),
+            "deepsets-64": ([64, 64, 64], [64, 10], ()),
+            "odd-widths": ([20, 13, 37], [10], (1,))}
+
+
+@pytest.mark.parametrize("model", list(DEEPSETS))
 @pytest.mark.parametrize("m,agg", [(1, "mean"), (7, "mean"), (32, "sum"),
                                    (64, "mean"), (200, "sum")])
-def test_deepsets_equals_plain(dev, m, agg):
+def test_deepsets_equals_plain(dev, model, m, agg):
+    phi_nodes, rho_nodes, no_bias = DEEPSETS[model]
     rng = np.random.default_rng(m)
-    phi, rho = _deepsets(rng, 21, [64, 64, 64], [64, 10])
+    phi, rho = _deepsets(rng, 21, phi_nodes, rho_nodes)
+    phi = dataclasses.replace(phi, layers=tuple(
+        dataclasses.replace(l, bias_q=None) if i in no_bias else l
+        for i, l in enumerate(phi.layers)))
     phi, rho = phi.to(dev), rho.to(dev)
-    x = _int8(rng, (64, m, 21), dev, -40, 40)
     mp = 1 << (m - 1).bit_length()
-    want = tcm.deepsets_ref(F.pad(x, (0, 0, 0, mp - m)), phi, rho, agg=agg)
-    assert torch.equal(tcm.deepsets(x, phi, rho, agg=agg), want)
+    for batch in (1, 64, 65):
+        x = _int8(rng, (batch, m, 21), dev, -40, 40)
+        want = tcm.deepsets_ref(F.pad(x, (0, 0, 0, mp - m)), phi, rho, agg=agg)
+        assert torch.equal(tcm.deepsets(x, phi, rho, agg=agg), want)
     assert torch.equal(tcm.deepsets(x[0], phi, rho, agg=agg), want[0])
+
+
+@pytest.mark.parametrize("m", [32, 33])
+def test_deepsets_takes_a_misaligned_view(dev, m):
+    """x starts one byte past an alignment: the byte path of the x staging
+    (at m = 33 also across two 32-row passes)."""
+    rng = np.random.default_rng(15)
+    phi, rho = _deepsets(rng, 21, [32, 32, 32], [32, 10])
+    phi, rho = phi.to(dev), rho.to(dev)
+    x = _int8(rng, (1 + 5 * m * 21,), dev, -40, 40)[1:].view(5, m, 21)
+    assert x.data_ptr() % 16
+    mp = 1 << (m - 1).bit_length()
+    want = tcm.deepsets_ref(F.pad(x, (0, 0, 0, mp - m)), phi, rho)
+    assert torch.equal(tcm.deepsets(x, phi, rho), want)
 
 
 def test_each_wrapper_counts_its_launches(dev):
@@ -227,6 +255,47 @@ def test_global_agg_equals_plain(dev, m, f):
     for op in ("sum", "mean"):
         mp = 1 << (m - 1).bit_length() if op == "mean" else m
         want = tga.global_agg_ref(F.pad(x, (0, 0, 0, mp - m)), op=op)
+        for impl in ("mac", "extract_add"):
+            assert torch.equal(tga.global_agg(x, op=op, impl=impl), want)
+
+
+@pytest.mark.parametrize("cols", [(8, 40), (3, 67), (0, 64), (4, 5)],
+                         ids=lambda c: f"{c[0]}-{c[1]}")
+@pytest.mark.parametrize("m", [1, 7, 64, 100])
+def test_global_agg_takes_a_column_slice(dev, cols, m):
+    """Columns of a wider matrix: the row stride (160) is not F, and the
+    slice starts on a word (8, 0, 4) or off one (3)."""
+    rng = np.random.default_rng(m + cols[0])
+    x = _int8(rng, (m, 160), dev)[:, cols[0]:cols[1]]
+    assert x.stride(0) == 160 and x.stride(1) == 1
+    for op in ("sum", "mean"):
+        mp = 1 << (m - 1).bit_length() if op == "mean" else m
+        want = tga.global_agg_ref(F.pad(x, (0, 0, 0, mp - m)), op=op)
+        for impl in ("mac", "extract_add"):
+            assert torch.equal(tga.global_agg(x, op=op, impl=impl), want)
+
+
+def test_global_agg_never_pads_or_copies_on_cuda(dev, monkeypatch):
+    """On a CUDA tensor the wrapper launches on the matrix as it stands:
+    F.pad, clone and contiguous are never called."""
+    rng = np.random.default_rng(16)
+    cases = []
+    for m, f in ((32, 32), (64, 64), (7, 5), (100, 130)):
+        x = _int8(rng, (m, f), dev)
+        for op in ("sum", "mean"):
+            mp = 1 << (m - 1).bit_length() if op == "mean" else m
+            cases.append((x, op, tga.global_agg_ref(
+                F.pad(x, (0, 0, 0, mp - m)), op=op)))
+    x = _int8(rng, (1 + 64 * 64,), dev)[1:].view(64, 64)
+    cases.append((x, "sum", tga.global_agg_ref(x)))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA path copied or padded its input")
+
+    monkeypatch.setattr(torch.nn.functional, "pad", refuse)
+    monkeypatch.setattr(torch.Tensor, "clone", refuse)
+    monkeypatch.setattr(torch.Tensor, "contiguous", refuse)
+    for x, op, want in cases:
         for impl in ("mac", "extract_add"):
             assert torch.equal(tga.global_agg(x, op=op, impl=impl), want)
 
@@ -384,6 +453,6 @@ def test_server_refuses_deepsets_unfused_on_cuda(dev):
 def test_prepare_packs_cuda_models_once(dev):
     q = _qmlp(np.random.default_rng(4), [16, 32, 5]).to(dev)
     tcm.prepare(q, None)
-    assert set(tcm.ops._packed[q]) == {False, True}   # both layouts
-    assert tcm.packed_chain(q) is tcm.packed_chain(q)
-    assert tcm.packed_mma_chain(q) is tcm.packed_mma_chain(q)
+    pc = tcm.ops._packed[q]                            # one layout
+    assert isinstance(pc, tcm.ops.PackedChain)
+    assert tcm.packed_mma_chain(q) is pc

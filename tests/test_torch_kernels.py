@@ -138,7 +138,11 @@ def test_cascade_mlp_flattened_batch_matches_jax_vmap():
 # -- K3 deepsets ------------------------------------------------------------------
 
 @pytest.mark.parametrize("m,agg", [(32, "mean"), (32, "sum"), (16, "mean"),
-                                   (7, "mean"), (21, "sum"), (1, "mean")])
+                                   (7, "mean"), (21, "sum"), (1, "mean"),
+                                   # the edges of the CUDA kernel's 16-row
+                                   # tiles and 32-row passes
+                                   (15, "mean"), (17, "sum"), (33, "mean"),
+                                   (64, "sum")])
 def test_deepsets_matches_jax(m, agg):
     rng = np.random.default_rng(m)
     phi, rho, tphi, trho = _deepsets_models(rng, 21, [32, 32], [10], max(m, 8))
@@ -197,39 +201,17 @@ def test_deepsets_ref_sum_takes_any_set_size_as_jax_does(m):
 
 # -- the packed layout the CUDA kernels read ---------------------------------------
 
-@pytest.mark.parametrize("dims", [[16, 64, 32, 5], [21, 32, 32, 10]])
-def test_packed_chain_holds_every_layer(dims):
-    """Reading the packed buffers back through ``meta`` as the CUDA kernel
-    does gives every layer's weights and biases, with zero padding."""
-    rng = np.random.default_rng(1)
-    _, port, _ = _models(rng, dims, 32)
-    pc = tcm.packed_chain(port)
-    assert tcm.packed_chain(port) is pc
-    meta, w, b = list(pc.meta), pc.w.numpy(), pc.b.numpy()
-    n_layers, w_bytes, b_count = meta[:3]
-    assert (n_layers, w_bytes, b_count) == (len(dims) - 1, w.size, b.size)
-    assert w_bytes % 16 == 0 and b_count % 4 == 0
-    assert (pc.stride // 4) % 2 == 1 and pc.stride >= max(dims)
-    for i, l in enumerate(port.layers):
-        k, kp, ks, n, np_, shift, relu, has_bias, w_off, b_off = \
-            meta[3 + 10 * i: 13 + 10 * i]
-        assert (k, n) == tuple(l.w_q.shape) and kp % 4 == 0 and np_ % 4 == 0
-        assert (ks // 4) % 2 == 1 and w_off % 16 == 0
-        wt = w[w_off: w_off + n * ks].reshape(n, ks)
-        np.testing.assert_array_equal(wt[:, :k].T, l.w_q.numpy())
-        assert not wt[:, k:].any()
-        assert (shift, bool(relu), bool(has_bias)) == (l.shift, l.relu, True)
-        np.testing.assert_array_equal(b[b_off: b_off + n], l.bias_q.numpy())
-
-
 @pytest.mark.parametrize("dims,no_bias", [([16, 64, 32, 5], ()),
-                                           ([21, 20, 13, 37, 10], (1,))],
-                         ids=["jsc-m-like", "odd-widths-one-without-bias"])
+                                           ([21, 20, 13, 37, 10], (1,)),
+                                           ([21, 32, 32, 32], ()),
+                                           ([32, 32, 10], ())],
+                         ids=["jsc-m-like", "odd-widths-one-without-bias",
+                              "deepsets-32-phi", "deepsets-32-rho"])
 def test_packed_mma_chain_holds_every_layer(dims, no_bias):
-    """K2's tensor-core layout read back through ``meta`` as the kernel
-    reads it: w^T with N padded to a multiple of 8 and K to a multiple of 32
-    (row stride K + 16 bytes), each bias padded to N8, zero everywhere past
-    the layer; packed once per model, beside K3's layout."""
+    """The tensor-core layout K2 and K3 read, read back through ``meta`` as
+    the kernels read it: w^T with N padded to a multiple of 8 and K to a
+    multiple of 32 (row stride K + 16 bytes), each bias padded to N8, zero
+    everywhere past the layer; packed once per model."""
     rng = np.random.default_rng(2)
     _, port, _ = _models(rng, dims, 32)
     port = QuantizedMLP(port.e_in, tuple(
@@ -237,7 +219,6 @@ def test_packed_mma_chain_holds_every_layer(dims, no_bias):
         for i, l in enumerate(port.layers)))
     pc = tcm.packed_mma_chain(port)
     assert tcm.packed_mma_chain(port) is pc
-    assert tcm.packed_chain(port) is not pc
     meta, w, b = list(pc.meta), pc.w.numpy(), pc.b.numpy()
     n_layers, w_bytes, b_count = meta[:3]
     assert (n_layers, w_bytes, b_count) == (len(dims) - 1, w.size, b.size)
@@ -258,6 +239,33 @@ def test_packed_mma_chain_holds_every_layer(dims, no_bias):
         if has_bias:
             np.testing.assert_array_equal(b[b_off: b_off + n], l.bias_q.numpy())
             assert not b[b_off + n: b_off + np_].any()
+
+
+def test_deepsets_pack_holds_both_chains():
+    """K3's one contiguous copy: phi's and rho's packed weights and biases,
+    then each chain's layer records padded to 16 bytes, built once per
+    (phi, rho) pair and again for another rho."""
+    rng = np.random.default_rng(3)
+    _, _, tphi, trho = _deepsets_models(rng, 21, [32, 20, 32], [32, 10], 16)
+    pack = tcm.ops._deepsets_pack(tphi, trho)
+    assert tcm.ops._deepsets_pack(tphi, trho) is pack
+    assert pack.dtype == torch.uint8 and pack.numel() % 16 == 0
+    pp, pr = tcm.packed_mma_chain(tphi), tcm.packed_mma_chain(trho)
+    parts = [pp.w.view(torch.uint8), pr.w.view(torch.uint8),
+             pp.b.view(torch.uint8), pr.b.view(torch.uint8)]
+    off = 0
+    for part in parts:
+        assert torch.equal(pack[off: off + part.numel()], part)
+        off += part.numel()
+    for pc in (pp, pr):
+        ints = -(-(len(pc.meta) - 3) // 4) * 4
+        records = pack[off: off + 4 * ints].view(torch.int32).numpy()
+        np.testing.assert_array_equal(records[:len(pc.meta) - 3], pc.meta[3:])
+        assert not records[len(pc.meta) - 3:].any()
+        off += 4 * ints
+    assert off == pack.numel()
+    _, _, _, other = _deepsets_models(rng, 21, [32], [32, 10], 16)
+    assert tcm.ops._deepsets_pack(tphi, other) is not pack
 
 
 def test_fusion_legality_rejects_an_oversized_chain():
