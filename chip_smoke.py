@@ -34,7 +34,19 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      K2 beside K1's five launches of the same batch and at three chain
      depths; K3 for one event, at three phi depths, at 1, 2 and 4 events a
      block and on a misaligned x; the launch floor (a 1-element zero_());
-     and SDPA's own max |err| in f32 against the plain version.
+     and SDPA's own max |err| in f32 against the plain version;
+  7. the H100 latency model (``repro_torch.core.h100_model``) against the
+     card: its measured constants calibrated anew (``h100_model.calibrate``:
+     the launch floor, K2 at 2/5/9 layers and K3 for one event at phi
+     depths 2/3/6, K1 a layer, one host-to-device copy of a served batch,
+     all at 64 rows) and printed beside the values the file holds; modeled
+     vs measured device time, fused (K2, or K3 for one DeepSets event) and
+     per-layer (K1 a layer), for JSC-M, JSC-XL and 64^3L8 at 64 rows and
+     deepsets-32/-64 one event, on the shapes ``JetServer.modeled_latency_us``
+     builds, each fused output equal to its plain version; JSC-M and
+     deepsets-32 are the chains the constants were fit on, the rest held
+     out; and the fusion planner's groups for every realistic workload,
+     each run by K2 on the card.
 It then prints the ``kernels`` JSON line and, last, the device JSON line.
 TF32 is off throughout, so the plain versions' f32 products are f32.
 
@@ -134,16 +146,6 @@ def _rand_int8(rng, shape, device, lo=-128, hi=128):
     return torch.from_numpy(rng.integers(lo, hi, shape).astype("int8")).to(device)
 
 
-def _random_qmlp(rng, dims, m):
-    """A quantized MLP with random float weights, calibrated on random input
-    (ReLU between layers, none after the last)."""
-    from repro_torch.quant import quantize_mlp
-    ws = [rng.normal(0, 0.4, (dims[i], dims[i + 1])) for i in range(len(dims) - 1)]
-    bs = [rng.normal(0, 0.1, (d,)) for d in dims[1:]]
-    relus = [True] * (len(ws) - 1) + [False]
-    return quantize_mlp(ws, bs, relus, rng.normal(0, 1, (m, dims[0])))
-
-
 def _random_deepsets(rng, f, phi_nodes, rho_nodes, m):
     import numpy as np
     from repro_torch.quant import quantize_mlp
@@ -223,6 +225,7 @@ def check_kernels(dev) -> dict:
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.core.h100_model import random_qmlp
     from repro_torch.kernels.cascade_mlp import (cascade_mlp, cascade_mlp_ref,
                                                  deepsets, deepsets_ref,
                                                  mlp_unfused)
@@ -256,7 +259,7 @@ def check_kernels(dev) -> dict:
                       + [5])
     # Off K2's tiles: K0 of 5 and 130, N not a multiple of 8 mid-chain.
     chains += [[5, 64, 32, 5], [130, 200, 64, 10], [16, 20, 13, 37, 70, 5]]
-    qs = [_random_qmlp(rng, dims, 64) for dims in chains]
+    qs = [random_qmlp(rng, dims) for dims in chains]
     # and jsc-m's chain with its second layer's bias dropped
     qs.append(dataclasses.replace(qs[0], layers=tuple(
         dataclasses.replace(l, bias_q=None) if i == 1 else l
@@ -552,6 +555,7 @@ def _time_ms(fn, iters: int = 200, warmup: int = 10, graph: bool = True) -> dict
     (the same calls captured once in a CUDA graph and replayed). Without
     ``graph``, for calls of milliseconds, the device time is the eager one."""
     import torch
+    from repro_torch.core.h100_model import graph_time_s
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -564,23 +568,7 @@ def _time_ms(fn, iters: int = 200, warmup: int = 10, graph: bool = True) -> dict
     eager = start.elapsed_time(end) / iters
     if not graph:
         return {"ms": eager, "eager_ms": eager}
-
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(stream):
-        fn()
-        with torch.cuda.graph(graph, stream=stream):
-            for _ in range(iters):
-                fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    graph.replay()
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return {"ms": start.elapsed_time(end) / iters, "eager_ms": eager}
+    return {"ms": graph_time_s(fn, iters) * 1e3, "eager_ms": eager}
 
 
 def _bound(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S) -> dict:
@@ -745,6 +733,7 @@ def time_kernels(dev, runs: dict, err: dict, paths: dict) -> list:
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.core.h100_model import random_qmlp
     from repro_torch.kernels.cascade_mlp import (cascade_mlp, cascade_mlp_ref,
                                                  deepsets, deepsets_ref)
     from repro_torch.kernels.mm_int8 import mm_int8, mm_int8_ref
@@ -809,7 +798,7 @@ def time_kernels(dev, runs: dict, err: dict, paths: dict) -> list:
     depth = {}
     for dims in ([16, 64, 5], [16, 64, 32, 32, 32, 5],
                  [16, 64] + [32] * 7 + [5]):
-        qd = _random_qmlp(rng, dims, 64).to(dev)
+        qd = random_qmlp(rng, dims).to(dev)
         _diff(cascade_mlp(x, qd), cascade_mlp_ref(x, qd))
         depth[len(dims) - 1] = _time_ms(lambda: cascade_mlp(x, qd))["ms"] * 1e3
     print(f"[time] cascade_mlp by depth, {rows} rows: " + ", ".join(
@@ -854,6 +843,115 @@ def time_kernels(dev, runs: dict, err: dict, paths: dict) -> list:
     return out
 
 
+# -- phase 7: the H100 latency model against the card -----------------------------
+
+# name -> (chain kind, widths, held out of the fit); the MLP chains of the
+# JAX package's benchmarks/tpu_cascade_fusion.py at 64 rows, and the
+# DeepSets models of Table 3 for one event.
+MODEL_CHAINS = {
+    "JSC-M": ("mlp", [16, 64, 32, 32, 32, 5], False),
+    "JSC-XL": ("mlp", [16, 128, 64, 64, 64, 5], True),
+    "64^3L8": ("mlp", [64] * 9, True),
+    "deepsets-32": ("deepsets", (32, 21, [32, 32, 32], [32, 10]), False),
+    "deepsets-64": ("deepsets", (64, 21, [64, 64, 64], [64, 10]), True),
+}
+
+
+def check_model(dev) -> None:
+    """Phase 7; fails on a fused output that differs from its plain version
+    or a planned group that K2 refuses."""
+    import numpy as np
+    import torch
+    from repro_torch.core import h100_model
+    from repro_torch.core.fusion_planner import plan, shapes_from_model
+    from repro_torch.core.layerspec import REALISTIC_WORKLOADS
+    from repro_torch.kernels.cascade_mlp import (cascade_mlp, cascade_mlp_ref,
+                                                 deepsets, deepsets_ref,
+                                                 mlp_unfused)
+    from repro_torch.serve import JetServer
+
+    cal = h100_model.calibrate(dev, seed=SEED)
+    for name in h100_model.MEASURED:
+        now, held = cal["constants"][name], getattr(h100_model, name)
+        unit, scale = ("GB/s", 1e-9) if name.endswith("_BW") else ("us", 1e6)
+        print(f"[model] {name}: measured {now * scale:.4f} {unit}, "
+              f"h100_model.py holds {held * scale:.4f} {unit} (held / "
+              f"measured {held / now:.3f})")
+    pts = cal["points"]
+    print("[model] calibration points (us): launch floor "
+          f"{pts['launch_floor'] * 1e6:.4f}; K2 by layers "
+          + ", ".join(f"{n}: {v * 1e6:.4f}"
+                      for n, v in pts["cascade_mlp_by_layers"].items())
+          + "; K3 one event by phi layers "
+          + ", ".join(f"{n}: {v * 1e6:.4f}" for n, v in
+                      pts["deepsets_one_event_by_phi_layers"].items())
+          + "; K1 by layer " + ", ".join(f"{v * 1e6:.4f}"
+                                         for v in pts["mm_int8_by_layer"])
+          + f"; H2D of {pts['h2d_batch_bytes']} bytes "
+            f"{pts['h2d_batch'] * 1e6:.4f}")
+
+    rng = np.random.default_rng(SEED + 3)
+    for name, (kind, spec, held_out) in MODEL_CHAINS.items():
+        if kind == "mlp":
+            q = h100_model.random_qmlp(rng, spec).to(dev)
+            rho = None
+            x = _rand_int8(rng, (64, spec[0]), dev)
+            fused = lambda: cascade_mlp(x, q)
+            exact = torch.equal(fused(), cascade_mlp_ref(x, q))
+            unfused_s = h100_model.graph_time_s(lambda: mlp_unfused(x, q))
+        else:
+            m, f, phi_w, rho_w = spec
+            q = h100_model.random_qmlp(rng, [f] + phi_w, relu_last=True).to(dev)
+            rho = h100_model.random_qmlp(rng, [phi_w[-1]] + rho_w).to(dev)
+            x = _rand_int8(rng, (1, m, f), dev)
+            fused = lambda: deepsets(x, q, rho)
+            exact = torch.equal(fused(), deepsets_ref(x, q, rho))
+            unfused_s = None
+        if not exact:
+            raise AssertionError(f"{name}: the fused kernel differs from its "
+                                 "plain version")
+        fused_s = h100_model.graph_time_s(fused)
+        server = JetServer(q, rho=rho, device=dev)
+        try:
+            mdl = server.modeled_latency_us()
+        finally:
+            server.close()
+        layers = list(q.layers) + (list(rho.layers) if rho is not None else [])
+        m_rows = layers[0].w_q.shape[0] if rho is not None else 64
+        shapes = [h100_model.LayerShape(M=m_rows, K=l.w_q.shape[0],
+                                        N=l.w_q.shape[1]) for l in layers]
+        hbm = [h100_model.hbm_traffic_bytes(shapes, fused=f)
+               for f in (True, False)]
+        if unfused_s is None:
+            unf = "none (no per-layer kernel path)"
+            ratio_u = "n/a"
+        else:
+            unf = f"{unfused_s * 1e6:.4f} us (K1 x {len(layers)})"
+            ratio_u = f"{mdl['unfused_us'] / (unfused_s * 1e6):.3f}"
+        print(f"[model] {name} ({'held out' if held_out else 'in-sample'}"
+              f"{', one event' if rho is not None else ', 64 rows'}): HBM "
+              f"fused {hbm[0]} B / unfused {hbm[1]} B; launches 1 vs "
+              f"{len(layers)}; modeled fused {mdl['fused_us']:.4f} us / "
+              f"unfused {mdl['unfused_us']:.4f} us; measured fused "
+              f"{fused_s * 1e6:.4f} us ({'K3' if rho is not None else 'K2'}) "
+              f"/ unfused {unf}; modeled/measured fused "
+              f"{mdl['fused_us'] / (fused_s * 1e6):.3f}, unfused {ratio_u}; "
+              f"fused bit-exact {exact}")
+
+    for name, fn in REALISTIC_WORKLOADS.items():
+        shapes = shapes_from_model(fn())
+        p = plan(shapes)
+        for g in p.groups:
+            dims = [shapes[g[0]].K] + [shapes[i].N for i in g]
+            q = h100_model.random_qmlp(
+                rng, dims, [shapes[i].bias for i in g]).to(dev)
+            x = _rand_int8(rng, (64, dims[0]), dev)
+            _diff(cascade_mlp(x, q), cascade_mlp_ref(x, q))
+        print(f"fusion-plan {name}: {p.n_kernels} kernel(s), modeled speedup "
+              f"{p.speedup:.2f}x vs per-layer; groups {list(p.groups)}, each "
+              f"run by K2 on the card, equal to its plain version")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -879,6 +977,7 @@ def main() -> int:
     runs = drive_serving()
     paths = drive_entry_points(dev, err)
     kernels = time_kernels(dev, runs, err, paths)
+    check_model(dev)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

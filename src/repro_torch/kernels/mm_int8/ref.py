@@ -2,8 +2,9 @@
 
 ``torch.mm`` on int8 returns int8 with the sum wrapped on the CPU and has no
 int32 kernel on CUDA, so the product runs in float64, which is exact while
-|acc| < 2^53 (any K below 2^37 here), and is then cast to int32. It runs on
-either device.
+|acc| < 2^53 (any K below 2^39 here), then goes through int64 and wraps to
+int32, as an int32 accumulator does past 2^31 (a straight float-to-int32
+cast would saturate there instead). It runs on either device.
 """
 from __future__ import annotations
 
@@ -15,8 +16,9 @@ from repro_torch.quant import requantize_shift
 
 
 def int8_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Exact int32 x @ w for int8 x (M, K) and w (K, N)."""
-    return (x.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
+    """x @ w for int8 x (M, K) and w (K, N) in int32, wrapping on overflow."""
+    acc = x.to(torch.float64) @ w.to(torch.float64)
+    return acc.to(torch.int64).to(torch.int32)
 
 
 def mm_int8_ref(x: torch.Tensor, w: torch.Tensor,

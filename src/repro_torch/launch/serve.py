@@ -9,7 +9,12 @@ GPU, and reports:
   * per-event latency percentiles with events sent one at a time,
   * events per second for the same events sent at once (a burst that the
     server batches, up to 64 events a launch), whose outputs must equal the
-    one-at-a-time outputs bit for bit.
+    one-at-a-time outputs bit for bit,
+  * the modeled H100 device time of the chain (``core.h100_model``), fused
+    vs per-layer,
+  * the Tier-A μ-ORCA DSE latency for the same network on the AMD VEK280
+    (the paper's own deployment target; a model of that chip, not a time
+    on this device), with its mapping summary.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --model deepsets-32
     PYTHONPATH=src python -m repro_torch.launch.serve --model jsc-m --mode unfused
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import dse, layerspec
 from repro_torch.data import JetConfig, jet_batch
 from repro_torch.models import deepsets as ds
 from repro_torch.models import mlp as mlp_lib
@@ -41,6 +47,9 @@ MODELS = {
     "deepsets-64": dict(kind="deepsets", M=64, F=21,
                         phi=[64, 64, 64], rho=[64, 10]),
 }
+SPECS = {"jsc-m": layerspec.jsc_m, "jsc-xl": layerspec.jsc_xl,
+         "deepsets-32": layerspec.deepsets_32,
+         "deepsets-64": layerspec.deepsets_64}
 LR = 2e-2
 
 
@@ -127,8 +136,10 @@ def _serve_single(prep: dict, args, device: torch.device) -> dict:
         burst = _wait([server.submit(xq[i]) for i in range(args.events)])
         burst_wall = time.perf_counter() - t1
         burst_batches = server.stats.batch_sizes[n_batches:]
+        mdl = server.modeled_latency_us()
     finally:
         server.close()
+    tier_a = dse.explore(SPECS[prep["name"]]())
     outputs = np.stack([r.result for r in singles])
     if not np.array_equal(outputs, np.stack([r.result for r in burst])):
         raise AssertionError("batched outputs differ from one-at-a-time ones")
@@ -155,6 +166,11 @@ def _serve_single(prep: dict, args, device: torch.device) -> dict:
                   burst_events_per_s=args.events / burst_wall,
                   burst_batches=len(burst_batches),
                   burst_max_batch=max(burst_batches),
+                  modeled_fused_us=mdl["fused_us"],
+                  modeled_unfused_us=mdl["unfused_us"],
+                  modeled_speedup=mdl["speedup"],
+                  dse_latency_ns=tier_a.latency_ns,
+                  dse_summary=tier_a.summary(),
                   qmlp=prep["qmlp"], rho=prep["rho"], xq=xq, outputs=outputs)
     print(f"\n[serve] {prep['name']}: float acc {prep['acc_float']:.3f}, "
           f"INT8 acc {acc_q:.3f}")
@@ -166,6 +182,11 @@ def _serve_single(prep: dict, args, device: torch.device) -> dict:
     print(f"[serve] burst of {args.events} events: "
           f"{report['burst_events_per_s']:.0f} events/s in "
           f"{len(burst_batches)} batches (largest {max(burst_batches)})")
+    print(f"[serve] modeled H100 latency: fused {mdl['fused_us']:.2f} us"
+          f" vs per-layer {mdl['unfused_us']:.2f} us"
+          f" ({mdl['speedup']:.2f}x from fusion)")
+    print(f"[serve] Tier-A μ-ORCA DSE on VEK280: {tier_a.latency_ns:.0f} ns "
+          f"({tier_a.latency_ns / 1e3:.2f} us) — {tier_a.summary()}")
     return report
 
 

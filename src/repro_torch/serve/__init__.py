@@ -26,6 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import h100_model
+from repro_torch.core.h100_model import LayerShape
 from repro_torch.quant import QuantizedMLP
 from repro_torch.kernels.cascade_mlp import (cascade_mlp, cascade_mlp_ref,
                                              deepsets, deepsets_ref,
@@ -110,6 +112,9 @@ class JetServer:
     bit-exact oracle). DeepSets has no per-layer kernel path: 'unfused' runs
     its plain version, as the JAX package does, and so is refused on CUDA.
     ``device`` defaults to CUDA and raises where there is none.
+    ``on_done``, if given, is called once per served request, after its
+    result is set and before its waiter wakes; an exception it raises is
+    swallowed, so that an observer never stops the worker.
     """
 
     def __init__(self, qmlp: QuantizedMLP, *,
@@ -118,7 +123,8 @@ class JetServer:
                  mode: str = "fused",
                  max_batch: int = 64,
                  window_us: float = 200.0,
-                 device="cuda"):
+                 device="cuda",
+                 on_done: Optional[Callable[[_Request], None]] = None):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         self.device = resolve_device(device)
@@ -131,6 +137,7 @@ class JetServer:
         self.mode = mode
         self.max_batch = max_batch
         self.window_us = window_us
+        self.on_done = on_done
         self.stats = ServeStats()
         self._q: "queue.Queue[_Request]" = queue.Queue()
         self._stop = threading.Event()
@@ -225,8 +232,31 @@ class JetServer:
                 r.result = out[i]
                 r.t_done = t_done
                 self.stats.record(r.t_submit, t_done)
+                if self.on_done is not None:
+                    # A raising observer must not strand the waiters.
+                    try:
+                        self.on_done(r)
+                    except Exception:
+                        pass
                 r.event.set()
             self.stats.batch_sizes.append(len(batch))
+
+    # -- Tier-B modeled latency on the H100 ---------------------------------------
+    def modeled_latency_us(self) -> dict:
+        """The chain's device time on the H100 by :mod:`h100_model`, fused
+        (one K2 or K3 launch) against per-layer (one K1 launch a layer), for
+        the JAX server's layer shapes: M = 64 rows for an MLP, and for
+        DeepSets M = phi's input width (not the set size) for every layer."""
+        ds = self.rho is not None
+        m = self.qmlp.layers[0].w_q.shape[0] if ds else 64
+        chain = list(self.qmlp.layers) + (list(self.rho.layers) if ds else [])
+        layers = [LayerShape(M=m, K=l.w_q.shape[0], N=l.w_q.shape[1],
+                             bias=l.bias_q is not None) for l in chain]
+        kernel = "deepsets" if ds else "cascade_mlp"
+        fused = h100_model.fused_chain_time_s(layers, kernel=kernel) * 1e6
+        unfused = h100_model.unfused_chain_time_s(layers) * 1e6
+        return {"fused_us": fused, "unfused_us": unfused,
+                "speedup": unfused / fused}
 
 
 __all__ = ["JetServer", "ServeStats", "MODES"]

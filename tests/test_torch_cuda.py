@@ -94,6 +94,32 @@ def test_mm_int8_saturates(dev):
     assert int(out.max()) == 127 and int(out.min()) == 127
 
 
+# Past 2^31 the int32 accumulator wraps, as the JAX reference's int32 dot
+# does: (x, w, K, out_int8, the JAX mm_int8_ref's result).
+WRAP_CASES = [(-128, -128, 131_073, False, -2147467264),
+              (-128, 127, 132_200, True, 127)]
+
+
+@pytest.mark.parametrize("xv,wv,k,out_int8,want", WRAP_CASES)
+def test_mm_int8_wraps_as_the_reference(dev, xv, wv, k, out_int8, want):
+    x = torch.full((1, k), xv, dtype=torch.int8, device=dev)
+    w = torch.full((k, 1), wv, dtype=torch.int8, device=dev)
+    got = tmm.mm_int8(x, w, out_int8=out_int8)
+    plain = tmm.mm_int8_ref(x, w, out_int8=out_int8)
+    assert torch.equal(got, plain)
+    assert int(got.item()) == want
+
+
+def test_h100_model_constants_are_current(dev):
+    """Each measured constant of the H100 model within 2x of what this card
+    measures now, so that a stale constant is caught."""
+    from repro_torch.core import h100_model
+    now = h100_model.calibrate(dev)["constants"]
+    for name in h100_model.MEASURED:
+        held = getattr(h100_model, name)
+        assert 0.5 <= held / now[name] <= 2.0, (name, held, now[name])
+
+
 CHAINS = [[16, 64, 32, 32, 32, 5], [16, 128, 64, 64, 64, 5], [21, 32, 5],
           [32, 128, 64, 5], [64, 32, 128, 32, 5],
           [512, 256, 5]]                       # above 48 KB of shared memory

@@ -90,6 +90,24 @@ def test_mm_int8_raw_int32_matches_jax():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("xv,wv,k,out_int8,want", [
+    (-128, -128, 131_073, False, -2147467264),
+    (-128, 127, 132_200, True, 127)])
+def test_mm_int8_ref_wraps_as_jax_does(xv, wv, k, out_int8, want):
+    """Past 2^31 the int32 accumulator wraps in the JAX reference; the plain
+    version wraps too (a float-to-int32 cast would saturate)."""
+    from repro.kernels.mm_int8.ref import mm_int8_ref as jax_ref
+    x = np.full((1, k), xv, np.int8)
+    w = np.full((k, 1), wv, np.int8)
+    jax_out = np.asarray(jax_ref(jnp.asarray(x), jnp.asarray(w),
+                                 out_int8=out_int8))
+    got = tmm.mm_int8(torch.from_numpy(x), torch.from_numpy(w),
+                      out_int8=out_int8)
+    assert jax_out.item() == want
+    assert got.dtype == (torch.int8 if out_int8 else torch.int32)
+    np.testing.assert_array_equal(got.numpy(), jax_out)
+
+
 def test_mm_int8_saturates():
     x = torch.full((8, 128), 127, dtype=torch.int8)
     w = torch.full((128, 8), 127, dtype=torch.int8)

@@ -18,7 +18,13 @@ MODULES = ["repro_torch", "repro_torch.quant", "repro_torch.kernels",
            "repro_torch.kernels.global_agg.ops",
            "repro_torch.kernels.flash_attn.ops", "repro_torch.data",
            "repro_torch.models.mlp", "repro_torch.models.deepsets",
-           "repro_torch.serve", "repro_torch.launch.serve"]
+           "repro_torch.serve", "repro_torch.launch.serve",
+           "repro_torch.core", "repro_torch.core.layerspec",
+           "repro_torch.core.aie_arch", "repro_torch.core.mapping",
+           "repro_torch.core.placement", "repro_torch.core.perfmodel",
+           "repro_torch.core.perfmodel_batched", "repro_torch.core.dse",
+           "repro_torch.core.baselines", "repro_torch.core.h100_model",
+           "repro_torch.core.fusion_planner"]
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 _FORBIDDEN = re.compile(r"jax|\brepro\.|^\s*(from|import)\s+repro\b", re.M)
 
@@ -81,6 +87,15 @@ def test_models_default_to_cuda():
         mlp.mlp_init(4, [3])
     with pytest.raises(RuntimeError, match="cuda"):
         deepsets.deepsets_init(4, [3], [2])
+
+
+def test_h100_calibration_needs_cuda():
+    _no_cuda()
+    from repro_torch.core import h100_model
+    with pytest.raises(RuntimeError, match="CUDA"):
+        h100_model.calibrate()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        h100_model.calibrate("cpu")
 
 
 def test_kernel_library_needs_cuda():

@@ -141,3 +141,99 @@ def test_prepare_packs_nothing_on_cpu(models):
     args = [tq if m == "mlp" else None for m in models]
     tcm.prepare(*args)
     assert tq not in tcm.ops._packed
+
+
+def _spy(monkeypatch, module):
+    """Records the layer lists ``module.fused_chain_time_s`` is called with."""
+    seen = []
+    real = module.fused_chain_time_s
+
+    def spy(layers, **kw):
+        seen.append([(l.M, l.K, l.N, l.bytes_per_elem) for l in layers])
+        return real(layers, **kw)
+    monkeypatch.setattr(module, "fused_chain_time_s", spy)
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["deepsets", "mlp"])
+def test_modeled_latency_uses_the_jax_servers_shapes(kind, monkeypatch):
+    """The same LayerShape list as the JAX server's (M = phi's input width
+    for DeepSets, 64 rows for an MLP), on the H100 model; fusion wins."""
+    from repro.core import tpu_model
+    from repro_torch.core import h100_model
+    (q, rho), _ = _deepsets(32) if kind == "deepsets" else _mlp()
+    jax_seen = _spy(monkeypatch, tpu_model)
+    ours_seen = _spy(monkeypatch, h100_model)
+    jax_srv = JaxServer(q, rho=rho, interpret=True)
+    srv = JetServer(QuantizedMLP.from_arrays(q),
+                    rho=None if rho is None else QuantizedMLP.from_arrays(rho),
+                    device="cpu")
+    try:
+        jax_srv.modeled_latency_us()
+        mdl = srv.modeled_latency_us()
+    finally:
+        jax_srv.close()
+        srv.close()
+    assert len(jax_seen) == len(ours_seen) == 1
+    assert ours_seen == jax_seen
+    assert set(mdl) == {"fused_us", "unfused_us", "speedup"}
+    assert mdl["speedup"] == mdl["unfused_us"] / mdl["fused_us"] > 1.0
+
+
+def _observed_server(make, xq):
+    """Serves ``xq`` one event at a time through a server whose observer
+    records each request as it sees it, and raises on the second."""
+    seen = []
+
+    def on_done(r):
+        seen.append((np.array(r.result), r.t_done is not None,
+                     r.event.is_set()))
+        if len(seen) == 2:
+            raise RuntimeError("a broken observer")
+    srv = make(on_done)
+    try:
+        outs = [srv.infer(x) for x in xq]
+    finally:
+        srv.close()
+    return seen, outs
+
+
+@pytest.mark.parametrize("kind", ["deepsets", "mlp"])
+def test_on_done_matches_jax_server(kind):
+    """Called once per request, after its result and t_done are set and
+    before its waiter wakes; an observer that raises does not stop the
+    worker."""
+    (q, rho), xq = _deepsets(32) if kind == "deepsets" else _mlp()
+    xq = xq[:4]
+    tq = QuantizedMLP.from_arrays(q)
+    trho = None if rho is None else QuantizedMLP.from_arrays(rho)
+    want, want_out = _observed_server(lambda cb: JaxServer(
+        q, rho=rho, interpret=True, window_us=0.0, on_done=cb), xq)
+    got, got_out = _observed_server(lambda cb: JetServer(
+        tq, rho=trho, device="cpu", window_us=0.0, on_done=cb), xq)
+    assert len(got) == len(want) == len(xq)
+    for (g, g_done, g_set), (w, w_done, w_set) in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+        assert (g_done, g_set) == (w_done, w_set) == (True, False)
+    for g, w in zip(got_out, want_out):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("model", ["deepsets-32", "jsc-m"])
+def test_launch_serve_prints_modeled_and_dse_lines(model, capsys):
+    """The single driver's two model lines: the H100 model's fused and
+    per-layer times, and the VEK280 DSE, equal to the JAX package's."""
+    from repro.core import dse as jdse
+    from repro.launch.serve import SPECS as JSPECS
+    rep = tserve.main(["--model", model, "--device", "cpu", "--events", "8",
+                       "--train-steps", "20"])
+    out = capsys.readouterr().out
+    want = jdse.explore(JSPECS[model]())
+    assert rep["dse_latency_ns"] == want.latency_ns
+    assert rep["dse_summary"] == want.summary()
+    assert (f"[serve] Tier-A μ-ORCA DSE on VEK280: {want.latency_ns:.0f} ns "
+            f"({want.latency_ns / 1e3:.2f} us) — {want.summary()}") in out
+    assert (f"[serve] modeled H100 latency: fused "
+            f"{rep['modeled_fused_us']:.2f} us vs per-layer "
+            f"{rep['modeled_unfused_us']:.2f} us") in out
+    assert rep["modeled_speedup"] > 1.0
