@@ -21,6 +21,18 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      deepsets-32 fused, jsc-m fused and jsc-m unfused, each with the launch
      counts set to 0 just before and read just after; every served output
      must equal the plain version computed on the CPU;
+  4b. the fleet serving path through the same ``main``: ``--mix
+     deepsets-32,jsc-m --replicas 4`` with the metrics, trace, drift gate
+     (0.05) and SLO (50 ms p99 at 0.99), the same burst at ``--replicas
+     1`` and both again in turn (R=4, R=1, R=1, R=4), an open-loop run at ``--replicas 4 --arrivals poisson:2000
+     --admission-depth 8``, and jsc-m ``--mode unfused --replicas 4``,
+     each with the launch counts set to 0 just before and read just after;
+     each run builds a fresh fleet, every replica must have served a batch
+     on a CUDA stream of its own, every gathered output must equal the
+     plain version computed on the CPU, and admitted + shed must equal
+     offered; the burst and open-loop numbers are printed per tenant, with
+     the host time a served event costs in the fleet's completion observer
+     (timed on synthetic requests) and in the scatter;
   5. the entry points of the kernels no model path reaches, each call with
      the launch counts set to 0 just before and read just after:
      ``global_agg`` at the paper's Table 4 shapes (both impls, both ops) and
@@ -414,11 +426,21 @@ def check_flash(dev, rng) -> dict:
 
 # -- phase 4: the serving path ---------------------------------------------------
 
+def _plain(run: dict, idx=None):
+    """The plain version on the CPU of a tenant's served events."""
+    import torch
+    from repro_torch.kernels.cascade_mlp import cascade_mlp, deepsets
+    xq = run["xq"] if idx is None else run["xq"][idx]
+    x, q = torch.from_numpy(xq), run["qmlp"].to("cpu")
+    if run["rho"] is not None:
+        return deepsets(x, q, run["rho"].to("cpu")).numpy()
+    b, m, f = x.shape
+    return cascade_mlp(x.reshape(b * m, f), q).reshape(b, m, -1).numpy()
+
+
 def drive_serving() -> dict:
     import numpy as np
-    import torch
     from repro_torch.kernels import launches
-    from repro_torch.kernels.cascade_mlp import cascade_mlp, deepsets
     from repro_torch.launch import serve
 
     runs = {}
@@ -440,14 +462,7 @@ def drive_serving() -> dict:
             raise AssertionError(f"{name}: the {kernel} kernel never launched")
         if rep["burst_max_batch"] < 2:
             raise AssertionError(f"{name}: the burst was never batched")
-        q = rep["qmlp"].to("cpu")
-        xq = torch.from_numpy(rep["xq"])
-        if rep["rho"] is not None:
-            plain = deepsets(xq, q, rep["rho"].to("cpu"))
-        else:
-            b, m, f = xq.shape
-            plain = cascade_mlp(xq.reshape(b * m, f), q).reshape(b, m, -1)
-        if not np.array_equal(rep["outputs"], plain.numpy()):
+        if not np.array_equal(rep["outputs"], _plain(rep)):
             raise AssertionError(f"{name}: served outputs differ from the "
                                  "plain version on the CPU")
         print(f"[serve] {name}: {len(rep['outputs'])} served outputs equal to "
@@ -465,6 +480,145 @@ def drive_serving() -> dict:
         raise AssertionError("jsc-m fused and unfused outputs differ")
     print("[serve] jsc-m fused and unfused outputs are equal")
     return runs
+
+
+# -- phase 4b: the fleet serving path ---------------------------------------------
+
+FLEET_MIX = ["--mix", "deepsets-32,jsc-m", "--events", "256",
+             "--train-steps", "20"]
+FLEET_KERNELS = {"deepsets-32": "deepsets", "jsc-m": "cascade_mlp"}
+# The bursts at R=4 and R=1 in turn, all under the same SLO (its tracker is
+# part of the per-event host work); the first also trains as phase 4 does,
+# writes the metrics and the trace and holds the drift gate. The others
+# train 20 steps: what they measure does not depend on the weights.
+FLEET_BURST = FLEET_MIX + ["--slo", "50000:0.99"]
+# name -> (argv, kernel each tenant must launch)
+FLEET_RUNS = {
+    "fleet R=4": (FLEET_BURST + ["--replicas", "4", "--drift-gate", "0.05",
+                                 "--train-steps", "100"], FLEET_KERNELS),
+    "fleet R=1": (FLEET_BURST + ["--replicas", "1"], FLEET_KERNELS),
+    "fleet R=1 again": (FLEET_BURST + ["--replicas", "1"], FLEET_KERNELS),
+    "fleet R=4 again": (FLEET_BURST + ["--replicas", "4"], FLEET_KERNELS),
+    "fleet open loop R=4": (FLEET_MIX + ["--replicas", "4", "--arrivals",
+                                         "poisson:2000", "--admission-depth",
+                                         "8"], FLEET_KERNELS),
+    "fleet jsc-m unfused R=4": (["--model", "jsc-m", "--mode", "unfused",
+                                 "--replicas", "4", "--events", "256",
+                                 "--train-steps", "20"],
+                                {"jsc-m": "mm_int8"}),
+}
+
+
+def drive_fleet() -> dict:
+    import numpy as np
+    from repro_torch.kernels import launches
+    from repro_torch.launch import serve
+
+    out_dir = ROOT / "build" / "fleet"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    files = ["--metrics-out", str(out_dir / "fleet_metrics.json"),
+             "--trace-out", str(out_dir / "fleet_trace.json")]
+    runs = {}
+    for name, (argv, kernels) in FLEET_RUNS.items():
+        extra = files if name == "fleet R=4" else []
+        t0 = time.perf_counter()
+        launches.reset()
+        rep = serve.main(argv + extra + ["--device", "cuda", "--seed",
+                                         str(SEED)])
+        counts = launches.snapshot()
+        wall = time.perf_counter() - t0
+        print(f"[fleet] {name}: launches {counts} ({wall:.1f} s, training "
+              f"included)")
+        streams = []
+        for tenant, run in rep["tenants"].items():
+            if counts.get(kernels[tenant], 0) == 0:
+                raise AssertionError(f"{name}: {tenant}'s {kernels[tenant]} "
+                                     "kernel never launched")
+            if min(run["batches"]) < 1:
+                raise AssertionError(f"{name}: a {tenant} replica served no "
+                                     f"batch: {run['batches']}")
+            for s, used in zip(run["streams"], run["launch_streams"]):
+                if s is None or used != [s]:
+                    raise AssertionError(f"{name}: {tenant} replica on "
+                                         f"stream {s} launched on {used}")
+            streams += run["streams"]
+            ol = run.get("open_loop")
+            idx = None if ol is None else ol["admitted_idx"]
+            if not np.array_equal(run["outputs"], _plain(run, idx)):
+                raise AssertionError(f"{name}: {tenant}'s gathered outputs "
+                                     "differ from the plain version on the CPU")
+            if ol is not None:
+                if ol["admitted"] + ol["shed"] != ol["offered"]:
+                    raise AssertionError(f"{name}: {tenant}: admitted + shed "
+                                         f"!= offered: {ol}")
+                print(f"[fleet] {name}: {tenant}: offered {ol['offered']} "
+                      f"({ol['offered_eps']:.0f}/s), admitted {ol['admitted']},"
+                      f" shed {ol['shed']}, driver lag "
+                      f"{ol['lag_s'] * 1e3:.3f} ms; open-loop p50 "
+                      f"{ol['p50_us']:.1f} us, p99 {ol['p99_us']:.1f} us, "
+                      f"queue wait p50 {ol['queue_wait_p50_us']:.1f} us, p99 "
+                      f"{ol['queue_wait_p99_us']:.1f} us; batches a replica "
+                      f"{run['batches']}; outputs equal to the CPU plain "
+                      "version")
+            else:
+                b = run["batch"]
+                print(f"[fleet] {name}: {tenant}: burst of {b['n']}: p50 "
+                      f"{b['p50_us']:.1f} us, p99 {b['p99_us']:.1f} us, "
+                      f"{b['throughput_eps']:.0f} events/s, scatter "
+                      f"{b['replica_counts']}, batches a replica "
+                      f"{run['batches']}; outputs equal to the CPU plain "
+                      "version")
+        if len(set(streams)) != len(streams):
+            raise AssertionError(f"{name}: replicas share a stream: {streams}")
+        if rep["slo"] is not None and not rep["slo"]["ok"]:
+            raise AssertionError(f"{name}: SLO budget exhausted")
+        print(f"[fleet] {name}: {len(streams)} replicas on {len(streams)} "
+              "distinct CUDA streams, each of which served a batch")
+        runs[name] = dict(rep, launches=counts)
+    for tenant in ("deepsets-32", "jsc-m"):
+        eps = {k: runs[k]["tenants"][tenant]["batch"]["throughput_eps"]
+               for k in ("fleet R=4", "fleet R=1", "fleet R=1 again",
+                         "fleet R=4 again")}
+        r4 = (eps["fleet R=4"] + eps["fleet R=4 again"]) / 2
+        r1 = (eps["fleet R=1"] + eps["fleet R=1 again"]) / 2
+        print(f"[fleet] {tenant}: burst events/s R=4, R=1, R=1, R=4: "
+              + ", ".join(f"{v:.0f}" for v in eps.values())
+              + f"; mean R=4 / R=1 = {r4 / r1:.2f}x")
+    hists = runs["fleet R=4"]["telemetry"]["metrics"]["histograms"]
+    scatter = [h for h in hists if h["name"] == "fleet.dispatch.overhead_us"]
+    print(f"[fleet] scatter (fleet R=4): "
+          f"{sum(h['sum'] for h in scatter) / 512:.2f} us an event")
+    time_fleet_observer(runs["fleet R=4"]["tenants"]["jsc-m"]["qmlp"])
+    return runs
+
+
+def time_fleet_observer(qmlp, n: int = 2000) -> float:
+    """Host time of the fleet's per-request completion observer (latency
+    and queue-wait histograms, counters, the drift stream and the SLO
+    tracker), which each replica's worker runs for every served event:
+    ``n`` synthetic completed requests, timed on this thread."""
+    from repro_torch.obs.slo import SLOSpec
+    from repro_torch.serve import _Request
+    from repro_torch.serve.fleet import FleetServer, TenantSpec
+    fleet = FleetServer([TenantSpec(name="m", qmlp=qmlp)], device="cuda",
+                        slos={"m": SLOSpec(tenant="m", availability=0.99,
+                                           p99_latency_budget_ns=5e7)})
+    try:
+        observe = fleet._servers["m"][0].on_done
+        reqs = []
+        for i in range(n):
+            r = _Request(x=None, t_submit=float(i))
+            r.t_start, r.t_done = i + 1e-4, i + 3e-4 + i * 1e-9
+            reqs.append(r)
+        t0 = time.perf_counter()
+        for r in reqs:
+            observe(r)
+        us = (time.perf_counter() - t0) / n * 1e6
+    finally:
+        fleet.close()
+    print(f"[fleet] completion observer: {us:.2f} us an event on the "
+          f"worker thread ({n} synthetic requests)")
+    return us
 
 
 # -- phase 5: the entry points of K4 and K5 ---------------------------------------
@@ -975,6 +1129,7 @@ def main() -> int:
 
     err = check_kernels(dev)
     runs = drive_serving()
+    drive_fleet()
     paths = drive_entry_points(dev, err)
     kernels = time_kernels(dev, runs, err, paths)
     check_model(dev)

@@ -12,7 +12,8 @@ execution model:
 
 The quantized weights move to the device once, at construction. A batch of
 B events of shape (M, F) is one launch: DeepSets takes (B, M, F) whole, and
-an MLP takes the (B*M, F) rows.
+an MLP takes the (B*M, F) rows. On CUDA each server launches on a stream of
+its own, so that the replicas of a fleet do not serialize on one stream.
 """
 from __future__ import annotations
 
@@ -111,7 +112,10 @@ class JetServer:
     mm_int8 launch per layer), 'ref' (the plain PyTorch versions; the tests'
     bit-exact oracle). DeepSets has no per-layer kernel path: 'unfused' runs
     its plain version, as the JAX package does, and so is refused on CUDA.
-    ``device`` defaults to CUDA and raises where there is none.
+    ``device`` defaults to CUDA and raises where there is none. On CUDA the
+    worker thread runs every batch on ``stream``, a ``torch.cuda.Stream`` of
+    this server's own (None on the CPU), and ``launch_streams`` holds the
+    handle of each stream a batch ran on.
     ``on_done``, if given, is called once per served request, after its
     result is set and before its waiter wakes; an exception it raises is
     swallowed, so that an observer never stops the worker.
@@ -131,6 +135,9 @@ class JetServer:
         if rho is not None and mode == "unfused" and self.device.type == "cuda":
             raise ValueError("DeepSets has no per-layer kernel path: mode "
                              "'unfused' would serve its plain version on CUDA")
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+        self.launch_streams: set = set()
         self.qmlp = qmlp.to(self.device)
         self.rho = None if rho is None else rho.to(self.device)
         self.agg = agg
@@ -142,6 +149,10 @@ class JetServer:
         self._q: "queue.Queue[_Request]" = queue.Queue()
         self._stop = threading.Event()
         self._fn = self._build()
+        if self.stream is not None:
+            # The weights and the packed-weight cache were made on this
+            # thread's stream: the worker's first launch must come after.
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -208,38 +219,46 @@ class JetServer:
         return batch
 
     def _run(self, batch: List[_Request]) -> np.ndarray:
+        # Allocated inside the worker's stream context, so the caching
+        # allocator ties xs to this server's stream.
         xs = torch.from_numpy(np.stack([r.x for r in batch])).to(self.device)
+        out = self._fn(xs)
+        if self.stream is not None:
+            self.launch_streams.add(
+                torch.cuda.current_stream(self.device).cuda_stream)
         # .cpu() waits for the launch on this thread's current stream.
-        return self._fn(xs).cpu().numpy()
+        return out.cpu().numpy()
 
     def _loop(self):
-        while not self._stop.is_set():
-            batch = self._collect()
-            if not batch:
-                continue
-            t_start = time.perf_counter()
-            for r in batch:
-                r.t_start = t_start
-            try:
-                out = self._run(batch)
-            except Exception as exc:  # the worker must outlive a bad batch
+        # torch.cuda.stream(None), on the CPU, is a no-op context.
+        with torch.cuda.stream(self.stream):
+            while not self._stop.is_set():
+                batch = self._collect()
+                if not batch:
+                    continue
+                t_start = time.perf_counter()
                 for r in batch:
-                    r.error = exc
+                    r.t_start = t_start
+                try:
+                    out = self._run(batch)
+                except Exception as exc:  # the worker must outlive a bad batch
+                    for r in batch:
+                        r.error = exc
+                        r.event.set()
+                    continue
+                t_done = time.perf_counter()
+                for i, r in enumerate(batch):
+                    r.result = out[i]
+                    r.t_done = t_done
+                    self.stats.record(r.t_submit, t_done)
+                    if self.on_done is not None:
+                        # A raising observer must not strand the waiters.
+                        try:
+                            self.on_done(r)
+                        except Exception:
+                            pass
                     r.event.set()
-                continue
-            t_done = time.perf_counter()
-            for i, r in enumerate(batch):
-                r.result = out[i]
-                r.t_done = t_done
-                self.stats.record(r.t_submit, t_done)
-                if self.on_done is not None:
-                    # A raising observer must not strand the waiters.
-                    try:
-                        self.on_done(r)
-                    except Exception:
-                        pass
-                r.event.set()
-            self.stats.batch_sizes.append(len(batch))
+                self.stats.batch_sizes.append(len(batch))
 
     # -- Tier-B modeled latency on the H100 ---------------------------------------
     def modeled_latency_us(self) -> dict:

@@ -482,3 +482,85 @@ def test_prepare_packs_cuda_models_once(dev):
     pc = tcm.ops._packed[q]                            # one layout
     assert isinstance(pc, tcm.ops.PackedChain)
     assert tcm.packed_mma_chain(q) is pc
+
+
+def _recording_stream_of(monkeypatch):
+    """Records the stream handle of every kernel launch and the thread
+    that made it."""
+    import threading
+    seen = []
+    real = _build.stream_of
+
+    def stream_of(t):
+        h = real(t)
+        seen.append((threading.get_ident(), h))
+        return h
+    monkeypatch.setattr(_build, "stream_of", stream_of)
+    return seen
+
+
+def test_server_launches_on_its_own_stream(dev, monkeypatch):
+    seen = _recording_stream_of(monkeypatch)
+    q = _qmlp(np.random.default_rng(5), [16, 32, 5])
+    x = np.random.default_rng(6).integers(-60, 60, (4, 64, 16)).astype(np.int8)
+    srv = JetServer(q, device=dev)
+    try:
+        out = [srv.infer(e) for e in x]
+    finally:
+        srv.close()
+    assert isinstance(srv.stream, torch.cuda.Stream)
+    assert srv.stream != torch.cuda.default_stream(dev)
+    assert srv.launch_streams == {srv.stream.cuda_stream}
+    assert seen and {h for _, h in seen} == {srv.stream.cuda_stream}
+    assert {t for t, _ in seen} == {srv._thread.ident}
+    for e, o in zip(x, out):
+        np.testing.assert_array_equal(o, tcm.cascade_mlp_ref(
+            torch.from_numpy(e), q).numpy())
+    cpu = JetServer(q, device="cpu")
+    cpu.close()
+    assert cpu.stream is None and cpu.launch_streams == set()
+
+
+@pytest.mark.parametrize("mode", ["fused", "unfused"])
+def test_fleet_replicas_launch_on_distinct_streams(dev, monkeypatch, mode):
+    """Four replicas a tenant on the card: every gathered output equals the
+    plain version, and every replica ran its batches on a stream of its
+    own."""
+    from repro_torch.serve.fleet import FleetServer, TenantSpec
+    rng = np.random.default_rng(7)
+    q = _qmlp(rng, [16, 64, 32, 32, 32, 5])
+    tenants = [TenantSpec(name="mlp", qmlp=q, mode=mode, replicas=4)]
+    xs = {"mlp": rng.integers(-60, 60, (64, 64, 16)).astype(np.int8)}
+    if mode == "fused":
+        phi, rho = _deepsets(rng, 21, [32, 32, 32], [32, 10])
+        tenants.append(TenantSpec(name="ds", qmlp=phi, rho=rho, replicas=4))
+        xs["ds"] = rng.integers(-60, 60, (64, 32, 21)).astype(np.int8)
+    seen = _recording_stream_of(monkeypatch)
+    launches.reset()
+    fleet = FleetServer(tenants, policy="rr", device=dev)
+    try:
+        results = {n: fleet.infer_batch(x, tenant=n, timeout=120)
+                   for n, x in xs.items()}
+    finally:
+        fleet.close()
+    counts = launches.snapshot()
+    kernels = {"mlp": "cascade_mlp" if mode == "fused" else "mm_int8",
+               "ds": "deepsets"}
+    for name, br in results.items():
+        assert counts.get(kernels[name], 0) > 0
+        assert br.replica_counts == [16] * 4
+        x = torch.from_numpy(xs[name])
+        t = next(t for t in tenants if t.name == name)
+        if t.rho is not None:
+            plain = tcm.deepsets_ref(x, t.qmlp, t.rho)
+        else:
+            plain = tcm.cascade_mlp_ref(x.reshape(-1, 16), t.qmlp).reshape(
+                64, 64, -1)
+        np.testing.assert_array_equal(br.results, plain.numpy())
+    servers = [s for ss in fleet._servers.values() for s in ss]
+    handles = [s.stream.cuda_stream for s in servers]
+    assert len(set(handles)) == len(servers)
+    for s in servers:
+        assert s.stats.batch_sizes, "a replica served no batch"
+        assert s.launch_streams == {s.stream.cuda_stream}
+    assert {h for _, h in seen} == set(handles)

@@ -24,7 +24,15 @@ MODULES = ["repro_torch", "repro_torch.quant", "repro_torch.kernels",
            "repro_torch.core.placement", "repro_torch.core.perfmodel",
            "repro_torch.core.perfmodel_batched", "repro_torch.core.dse",
            "repro_torch.core.baselines", "repro_torch.core.h100_model",
-           "repro_torch.core.fusion_planner"]
+           "repro_torch.core.fusion_planner", "repro_torch.core.tenancy",
+           "repro_torch.core.calibrate", "repro_torch.obs",
+           "repro_torch.obs.metrics", "repro_torch.obs.tracing",
+           "repro_torch.obs.slo", "repro_torch.obs.drift",
+           "repro_torch.obs.profile", "repro_torch.sim",
+           "repro_torch.sim.events", "repro_torch.sim.array",
+           "repro_torch.sim.trace", "repro_torch.sim.run",
+           "repro_torch.sim.fastpath", "repro_torch.serve.workload",
+           "repro_torch.serve.fleet"]
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 _FORBIDDEN = re.compile(r"jax|\brepro\.|^\s*(from|import)\s+repro\b", re.M)
 
@@ -73,11 +81,26 @@ def test_jetserver_defaults_to_cuda():
         JetServer(_tiny_qmlp())
 
 
+def test_fleet_defaults_to_cuda():
+    _no_cuda()
+    from repro_torch.serve.fleet import FleetServer, TenantSpec
+    with pytest.raises(RuntimeError, match="cuda"):
+        FleetServer([TenantSpec(name="m", qmlp=_tiny_qmlp())])
+
+
 def test_launch_serve_defaults_to_cuda():
     _no_cuda()
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--events", "1", "--train-steps", "0"])
+
+
+def test_launch_serve_fleet_defaults_to_cuda():
+    _no_cuda()
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--mix", "deepsets-32,jsc-m", "--replicas", "2",
+                    "--events", "1", "--train-steps", "0"])
 
 
 def test_models_default_to_cuda():
