@@ -58,8 +58,21 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      builds, each fused output equal to its plain version; JSC-M and
      deepsets-32 are the chains the constants were fit on, the rest held
      out; and the fusion planner's groups for every realistic workload,
-     each run by K2 on the card.
-It then prints the ``kernels`` JSON line and, last, the device JSON line.
+     each run by K2 on the card;
+  8. the dense LM path through ``repro_torch.models.build`` at qwen3-14b's
+     full width and depth (40 layers, bf16 weights, random from a seed):
+     a prefill forward of 2048 tokens with the launch counts set to 0 just
+     before and read just after (K5 bf16 exactly once a layer), finite f32
+     logits of the full shape and a residual stream finite at every layer;
+     layer 0's q/k/v through K5 and its plain version on the card (within
+     FLASH_TOL); decode of the first 16 tokens from an empty cache against
+     the forward's logits (within LM_DECODE_TOL, with the top-1
+     agreement); and the prefill, K5's share of it and decode a token,
+     each beside its bound, with the card's name and power limit.
+It then prints the ``kernels`` JSON line (K5 bf16's numbers are phase 8's:
+its launches in the prefill and its time at one layer's shapes, with those
+of the phase-5/6 entry point under ``entry_point``) and, last, the device
+JSON line.
 TF32 is off throughout, so the plain versions' f32 products are f32.
 
 It exits nonzero, with no result, where CUDA is absent or where the rest of
@@ -529,6 +542,11 @@ def drive_fleet() -> dict:
         wall = time.perf_counter() - t0
         print(f"[fleet] {name}: launches {counts} ({wall:.1f} s, training "
               f"included)")
+        win = rep["serving_window"]
+        print(f"[fleet] {name}: full collection before serving "
+              f"{win['collect_ms']:.1f} ms (out of the bursts); while "
+              f"serving: {win['full_collections']} full collections, "
+              f"{win['cuda_mallocs']} cudaMalloc calls")
         streams = []
         for tenant, run in rep["tenants"].items():
             if counts.get(kernels[tenant], 0) == 0:
@@ -1106,6 +1124,277 @@ def check_model(dev) -> None:
               f"run by K2 on the card, equal to its plain version")
 
 
+# -- phase 8: the dense LM path at qwen3-14b's full width ---------------------
+
+# qwen3-14b (src/repro/configs/archs.py:73) at full width and depth: 40
+# layers, d 5120, 40 heads, 8 KV heads, head dim 128, d_ff 17408, vocab
+# 151936; bf16 weights (29.6 GB). One prompt of 2048 tokens, then decode of
+# its first 16 tokens from an empty cache of 64.
+LM_ARCH = "qwen3-14b"
+LM_BATCH, LM_SEQ = 1, 2048
+LM_CACHE, LM_DECODE = 64, 16
+# Bound on decode against the forward's logits at the same positions, as
+# max |diff| / max |logit|: the reference's own decode-vs-forward tolerance
+# (0.06, tests/test_arch_smoke.py) taken relative to the largest logit.
+# Decode casts the normalized softmax weights to bf16 and K5 bf16 packs the
+# unnormalized ones, which moves every logit by about one bf16 ulp of the
+# largest (0.4%) a layer that rounds apart; a wrong position, cache slot or
+# mask moves them by order 1.
+LM_DECODE_TOL = 0.06
+
+
+def _lm_flops(cfg, b: int, s: int) -> float:
+    """Operations of one prefill: 2 a weight a token for every matmul
+    (param_count() counts the embedding once: the tied LM head; its lookup
+    does none), and 4*hd a visible (query, key) pair a head a layer."""
+    pairs = s * (s + 1) // 2
+    return (2.0 * b * s * cfg.param_count()
+            + 4.0 * cfg.hd * cfg.n_heads * b * pairs * cfg.n_layers)
+
+
+def _profile(fn, label: str, top: int = 6) -> dict:
+    """One traced run of ``fn`` (torch.profiler, CPU and CUDA): its wall
+    time, the device's busy time (the kernels' self time, summed) and the
+    kernels that take most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy <= 0:
+        print(f"[lm] profile {label}: the trace shows no device time")
+        return {"wall_ms": wall, "busy_ms": None}
+    print(f"[lm] profile {label}: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}); "
+          + "; ".join(f"{ms:.3f} ms x{n} {k[:60]}" for ms, n, k in rows[:top]))
+    return {"wall_ms": wall, "busy_ms": busy,
+            "top": [dict(ms=ms, count=n, name=k) for ms, n, k in rows[:top]]}
+
+
+def drive_lm(dev, err: dict) -> dict:
+    """Phase 8; fails on a K5 count other than one a layer a forward,
+    logits that are not finite or of the wrong shape, K5 inside the model
+    off its plain version by more than FLASH_TOL, or decode off the
+    forward by more than LM_DECODE_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import launches
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_ref, flash_mha)
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as B
+    from repro_torch.models import build
+    from repro_torch.models import transformer as T
+
+    # bf16 GEMMs reduce in f32, as the reference's XLA products do.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = configs.get(LM_ARCH)
+    b, s = LM_BATCH, LM_SEQ
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[lm] {LM_ARCH} full width and depth ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv} KV, hd {cfg.hd}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}): {n_params} weights, "
+          f"{w_bytes / 1e9:.3f} GB on the card (bf16 matmuls, f32 norms), "
+          f"random from seed {SEED} in {init_s:.2f} s; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
+
+    rng = np.random.default_rng(SEED + 8)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    launches.reset()
+    logits, aux = model(toks)
+    torch.cuda.synchronize()
+    counts = launches.snapshot()
+    if counts != {"flash_attn": cfg.n_layers}:
+        raise AssertionError(f"a prefill forward launched {counts}; want "
+                             f"flash_attn x {cfg.n_layers}, one a layer")
+    if (logits.shape != (b, s, cfg.vocab) or logits.dtype != torch.float32
+            or not bool(torch.isfinite(logits).all()) or float(aux) != 0.0):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    print(f"[lm] prefill forward B={b} S={s}: launches {counts}; logits "
+          f"{tuple(logits.shape)} f32, finite, max |logit| "
+          f"{float(logits.abs().max()):.3f}")
+
+    # The residual stream layer by layer (the same blocks, outside the
+    # counted run): finite through all 40 random layers, and how it grows.
+    x = B.embed(model.embedding, toks)
+    grow = {}
+    for i, (kind, p) in enumerate(zip(model.kinds, model.layers), 1):
+        x, _ = T.block_apply(kind, p, x, cfg, None)
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"the residual stream is not finite after "
+                                 f"layer {i}")
+        if i in (1, 10, 20, 30, 40):
+            grow[i] = float(x.float().pow(2).mean().sqrt())
+    print("[lm] residual stream rms after layer " + ", ".join(
+        f"{i}: {v:.3f}" for i, v in grow.items()) + " (finite at every layer)")
+
+    # K5 inside the model: layer 0's q/k/v through flash_mha and through
+    # its plain version, on the card.
+    l0 = model.layers[0]
+    acfg = T._attn_cfg(cfg)
+    h = T._norm(cfg, l0["ln1"], B.embed(model.embedding, toks))
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    q, k, v = A._qkv(l0["attn"], h, acfg, pos)
+    got = flash_mha(q, k, v)
+    want = mha_plain(q, k, v)
+    e = _close(got, want, FLASH_TOL["bfloat16"])
+    err["flash_attn_bfloat16"] = max(err["flash_attn_bfloat16"], e)
+    print(f"[lm] K5 in layer 0 (q {tuple(q.shape)}, k/v {tuple(k.shape)} "
+          f"bf16): max |err| {e:.3e} against the plain version (tolerance "
+          f"{FLASH_TOL['bfloat16']}); {_where_err(got, want, 'bfloat16')}")
+    del got, want, h
+
+    # Decode from an empty cache over the prompt's first tokens.
+    cache = model.init_cache(b, LM_CACHE)
+    launches.reset()
+    dec = []
+    for t in range(LM_DECODE):
+        lg, cache = model.decode_step(toks[:, t:t + 1], cache)
+        dec.append(lg)
+    torch.cuda.synchronize()
+    dec_counts = launches.snapshot()
+    dec = torch.cat(dec, dim=1)
+    full = logits[:, :LM_DECODE]
+    rel = float((dec - full).abs().max() / full.abs().max())
+    top1 = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    if not bool(torch.isfinite(dec).all()) or rel > LM_DECODE_TOL:
+        raise AssertionError(f"decode differs from the forward's logits: "
+                             f"max |diff| / max |logit| {rel:.4e} (bound "
+                             f"{LM_DECODE_TOL})")
+    print(f"[lm] decode of the first {LM_DECODE} tokens (cache {LM_CACHE}, "
+          f"{cfg.kv_cache_dtype}) against the forward's logits: max |diff| / "
+          f"max |logit| {rel:.4e} (bound {LM_DECODE_TOL}), top-1 agreement "
+          f"{top1:.4f}; launches {dec_counts or 'none'} (attention over the "
+          f"cache in plain PyTorch, as the reference)")
+    del dec, full
+
+    # Times, each beside its bound.
+    def lm_times():
+        """Prefill ms, and decode ms a token (the mean of tokens 1..15 after
+        token 0 from an empty cache), with the cache left behind."""
+        pre = _time_ms(lambda: model(toks), iters=3, warmup=1, graph=False)
+        cache = model.init_cache(b, LM_CACHE)
+        tok_iter = iter(range(LM_DECODE))
+
+        def step():
+            nonlocal cache
+            t = next(tok_iter)
+            _, cache = model.decode_step(toks[:, t:t + 1], cache)
+
+        step()
+        dec = _time_ms(step, iters=LM_DECODE - 1, warmup=0, graph=False)
+        return pre["ms"], dec["ms"], cache
+
+    flops = _lm_flops(cfg, b, s)
+    pre_ms, dec_ms, cache = lm_times()
+    pre_bound = flops / BF16_OPS_PER_S * 1e3
+    # The same with cuBLAS's default (bf16 partial sums may round to bf16).
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    pre_rr, dec_rr, _ = lm_times()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    mha = _time_ms(lambda: flash_mha(q, k, v), iters=10, warmup=2,
+                   graph=False)
+    n_rep = cfg.n_heads // cfg.n_kv
+    qf = _heads(q, b, cfg.n_heads, s, cfg.hd)
+    kf, vf = (_heads(t.repeat_interleave(n_rep, dim=2), b, cfg.n_heads, s,
+                     cfg.hd) for t in (k, v))
+    kern = _time_ms(lambda: flash_attention(qf, kf, vf, causal=True),
+                    iters=10, warmup=2, graph=False)
+    plain = _time_ms(lambda: flash_attention_ref(qf, kf, vf, causal=True),
+                     iters=3, warmup=1, graph=False)
+    q4, k4, v4 = (t.view(b, cfg.n_heads, s, cfg.hd) for t in (qf, kf, vf))
+    lib = _time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), iters=10, warmup=2, graph=False)
+    k5_ops = 4 * cfg.hd * b * cfg.n_heads * s * (s + 1) // 2
+    k5_bound = _bound(4 * qf.numel() * qf.element_size(), k5_ops,
+                      BF16_OPS_PER_S)
+    kv_bytes = sum(c.k.numel() * c.k.element_size() * 2
+                   for c in cache["layers"])
+    dec_bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    share = cfg.n_layers * mha["ms"] / pre_ms
+    # Where the time goes: one traced prefill and four traced decode steps.
+    prof_pre = _profile(lambda: model(toks), f"prefill B={b} S={s}")
+    cache = model.init_cache(b, LM_CACHE)
+
+    def four():
+        nonlocal cache
+        for t in range(4):
+            _, cache = model.decode_step(toks[:, t:t + 1], cache)
+
+    prof_dec = _profile(four, f"4 decode steps B={b}")
+    print(f"[lm] {_card_line()}")
+    print(f"[lm] prefill B={b} S={s}: {pre_ms:.3f} ms, bound "
+          f"{pre_bound:.3f} ms ({flops / 1e12:.3f} TFLOP / 989 TFLOP/s bf16; "
+          f"{flops / (pre_ms * 1e-3) / 1e12:.1f} TFLOP/s achieved, "
+          f"{pre_bound / pre_ms:.3f} of the bound)")
+    print(f"[lm] K5 in the prefill: flash_mha at the layer's shapes "
+          f"{mha['ms']:.4f} ms a call (the kernel alone {kern['ms']:.4f} ms, "
+          f"bound {k5_bound['bound_ms']:.4f} ms, plain version "
+          f"{plain['ms']:.4f} ms, SDPA {lib['ms']:.4f} ms); x {cfg.n_layers} "
+          f"layers = {cfg.n_layers * mha['ms']:.3f} ms, {share:.4f} of the "
+          f"prefill")
+    print(f"[lm] decode B={b}: {dec_ms:.3f} ms a token (mean of tokens "
+          f"1..{LM_DECODE - 1}), bound {dec_bound:.3f} ms ({w_bytes} weight "
+          f"+ {kv_bytes} cache bytes / 3.35 TB/s; {dec_bound / dec_ms:.3f} "
+          f"of the bound)")
+    print(f"[lm] with bf16 reduced-precision reduction allowed (cuBLAS's "
+          f"default; off for every check above): prefill {pre_rr:.3f} ms, "
+          f"decode {dec_rr:.3f} ms a token")
+    k5 = dict(launches=counts["flash_attn"], ms=kern["ms"],
+              eager_ms=kern["eager_ms"], call_ms=mha["ms"],
+              plain_ms=plain["ms"], library_ms=lib["ms"], **k5_bound,
+              tflops=k5_ops / (kern["ms"] * 1e-3) / 1e12,
+              bound_share=k5_bound["bound_ms"] / kern["ms"],
+              shape=f"{LM_ARCH} prefill, one layer: B*H={b * cfg.n_heads}, "
+                    f"S=T={s}, hd={cfg.hd}, bf16, causal")
+    out = dict(arch=LM_ARCH, k5=k5,
+               prefill_ms=pre_ms, prefill_bound_ms=pre_bound,
+               prefill_reduced_reduction_ms=pre_rr,
+               prefill_tflop=flops / 1e12, k5_share=share, decode_ms=dec_ms,
+               decode_reduced_reduction_ms=dec_rr,
+               decode_bound_ms=dec_bound, decode_rel_err=rel,
+               decode_top1=top1, weight_bytes=w_bytes, init_s=init_s,
+               residual_rms=grow, profile_prefill=prof_pre,
+               profile_decode=prof_dec)
+    del model, logits, cache, q, k, v, qf, kf, vf, q4, k4, v4
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_path(kernels: list, lm: dict, err: dict) -> None:
+    """K5 bf16's entry of the kernels line takes its main path's numbers,
+    phase 8's prefill (launches, and time at a layer's shapes); its numbers
+    at the phase-5/6 entry point (S = 4096) move under ``entry_point``."""
+    k5 = next(k for k in kernels if k["name"] == "flash_attn_bfloat16")
+    entry = {key: k5.pop(key) for key in
+             ("launches", "ms", "eager_ms", "plain_ms", "library_ms",
+              "library_max_abs_err", "bound_ms", "bound_by", "bytes", "ops",
+              "tflops", "bound_share", "shape")}
+    k5.update(lm.pop("k5"), max_abs_err=err["flash_attn_bfloat16"],
+              entry_point=entry, lm=lm)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1133,6 +1422,7 @@ def main() -> int:
     paths = drive_entry_points(dev, err)
     kernels = time_kernels(dev, runs, err, paths)
     check_model(dev)
+    lm_path(kernels, drive_lm(dev, err), err)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

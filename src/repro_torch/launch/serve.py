@@ -48,6 +48,8 @@ outputs, so that a caller can hold them against the plain versions.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import time
 from typing import Optional, Sequence
 
@@ -156,22 +158,68 @@ def _wait(reqs):
     return reqs
 
 
+@contextlib.contextmanager
+def _serving_window(device: torch.device):
+    """Keeps the garbage collector's full collections out of a serving
+    window, and counts what the window still does that would stall it.
+
+    A full collection walks every object the process tracks (torch, the
+    models, whatever the caller holds) with the GIL held, so one that starts
+    inside a burst stops every worker and adds its whole pause to every event
+    in flight. The heap is collected once before serving and then frozen:
+    the young generations still collect what serving makes, and a full
+    collection finds nothing old to walk. It is unfrozen afterwards (an
+    earlier freeze with it, the interpreter's own included), so that a
+    caller that runs `main` again can collect what this run left.
+
+    Yields a dict with the pre-serving collection's time (``collect_ms``);
+    once the window closes it also holds the full collections that ran
+    inside it (``full_collections``) and, on CUDA, the device allocations
+    the caching allocator made inside it (``cuda_mallocs``), each a
+    cudaMalloc in some request's latency (``JetServer`` primes its stream
+    so that a served batch needs none)."""
+    stats = {"full_collections": 0}
+    cuda = device.type == "cuda"
+
+    def count(phase, info):
+        if phase == "start" and info["generation"] == 2:
+            stats["full_collections"] += 1
+
+    def mallocs() -> int:
+        return torch.cuda.memory_stats(device).get("segment.all.allocated", 0)
+
+    t0 = time.perf_counter()
+    gc.collect()
+    stats["collect_ms"] = (time.perf_counter() - t0) * 1e3
+    m0 = mallocs() if cuda else 0
+    gc.freeze()
+    gc.callbacks.append(count)
+    try:
+        yield stats
+    finally:
+        gc.callbacks.remove(count)
+        gc.unfreeze()
+        stats["cuda_mallocs"] = mallocs() - m0 if cuda else None
+
+
 def _serve_single(prep: dict, args, device: torch.device) -> dict:
     """Single-instance deployment (one JetServer)."""
     server = JetServer(prep["qmlp"], rho=prep["rho"], agg="mean",
                        mode=args.mode, device=device)
     try:
-        xq, y = _events(prep, args.events)
-        t0 = time.perf_counter()
-        singles = [_wait([server.submit(xq[i])])[0] for i in range(args.events)]
-        wall = time.perf_counter() - t0
-        p50, p99 = server.stats.percentile(50), server.stats.percentile(99)
-        n_batches = len(server.stats.batch_sizes)
+        with _serving_window(device) as window:
+            xq, y = _events(prep, args.events)
+            t0 = time.perf_counter()
+            singles = [_wait([server.submit(xq[i])])[0]
+                       for i in range(args.events)]
+            wall = time.perf_counter() - t0
+            p50, p99 = server.stats.percentile(50), server.stats.percentile(99)
+            n_batches = len(server.stats.batch_sizes)
 
-        t1 = time.perf_counter()
-        burst = _wait([server.submit(xq[i]) for i in range(args.events)])
-        burst_wall = time.perf_counter() - t1
-        burst_batches = server.stats.batch_sizes[n_batches:]
+            t1 = time.perf_counter()
+            burst = _wait([server.submit(xq[i]) for i in range(args.events)])
+            burst_wall = time.perf_counter() - t1
+            burst_batches = server.stats.batch_sizes[n_batches:]
         mdl = server.modeled_latency_us()
     finally:
         server.close()
@@ -206,7 +254,8 @@ def _serve_single(prep: dict, args, device: torch.device) -> dict:
                   modeled_speedup=mdl["speedup"],
                   dse_latency_ns=tier_a.latency_ns,
                   dse_summary=tier_a.summary(),
-                  qmlp=prep["qmlp"], rho=prep["rho"], xq=xq, outputs=outputs)
+                  qmlp=prep["qmlp"], rho=prep["rho"], xq=xq, outputs=outputs,
+                  serving_window=window)
     print(f"\n[serve] {prep['name']}: float acc {prep['acc_float']:.3f}, "
           f"INT8 acc {acc_q:.3f}")
     print(f"[serve] measured on {where}, mode {args.mode}, one event at a "
@@ -419,8 +468,9 @@ def _serve_fleet(preps: dict, args, device: torch.device) -> dict:
     print(f"\n[fleet] {fleet.num_replicas} replicas across "
           f"{len(preps)} tenant(s), policy={args.policy}, on {where}")
     try:
-        served = {name: _serve_tenant(fleet, name, prep, args, where)
-                  for name, prep in preps.items()}
+        with _serving_window(device) as window:
+            served = {name: _serve_tenant(fleet, name, prep, args, where)
+                      for name, prep in preps.items()}
         modeled = fleet.modeled_throughput()
         telemetry = (fleet.telemetry_snapshot()
                      if (args.metrics_out or args.trace_out
@@ -464,7 +514,7 @@ def _serve_fleet(preps: dict, args, device: torch.device) -> dict:
     return dict(mode=args.mode, device=where, policy=args.policy,
                 replicas=args.replicas, tenants=served,
                 summary=fleet.summary(), modeled=modeled, telemetry=telemetry,
-                slo=slo, launches=launches.snapshot())
+                slo=slo, serving_window=window, launches=launches.snapshot())
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -1,0 +1,203 @@
+"""Attention for the dense GQA family: the JAX package's
+``src/repro/models/attention.py:24-282``.
+
+One parameterized implementation covers MHA/GQA (n_kv <= n_heads), optional
+QKV bias (qwen1.5), optional qk-norm (qwen3), RoPE, and KV-cache decode with
+a bf16 or int8 cache (a ring buffer for a window). The causal, window-free
+prefill runs through the hand-written flash attention kernel (K5,
+``kernels.flash_attn.flash_mha``) in bf16; decode attends over the cache in
+plain PyTorch, as the reference does outside any Pallas kernel.
+
+Not ported yet, and refused with the ROADMAP item that ports them: a window
+or a non-causal mask in the full-sequence path (ROADMAP.md §1 M9b, M9c) and
+MLA (M9b).
+
+Shapes: x (B, S, d); q/k/v (B, S, H, hd); cache K/V (B, S_max, n_kv, hd).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attn import flash_mha
+from .blocks import Params, apply_rope, dense, dense_init, rmsnorm, rmsnorm_init
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    window: Optional[int] = None       #: sliding/local attention window
+    rope_theta: float = 10000.0
+    mrope_sections: Optional[Tuple[int, int, int]] = None  # qwen2-vl
+    causal: bool = True
+    use_rope: bool = True              #: False for learned-pos models (whisper)
+    #: "bfloat16" or "int8" — int8 halves KV-cache HBM again using the
+    #: paper's symmetric power-of-two scheme (write: scaled round+clip;
+    #: read: shift-dequant).
+    cache_dtype: str = "bfloat16"
+
+
+#: power-of-two KV quantization scale 2^e (paper §4.3.2 scheme): post-norm
+#: k/v values sit in ~N(0, 1), so e = -3 spans ±15.9 at int8 resolution.
+KV_SCALE_EXP = -3
+
+
+def _cache_store(x: torch.Tensor, dtype) -> torch.Tensor:
+    if dtype == torch.int8:
+        # torch.round rounds half to even, as the reference's jnp.round.
+        return torch.clamp(torch.round(x.float() * 2.0 ** -KV_SCALE_EXP),
+                           -128, 127).to(torch.int8)
+    return x.to(dtype)
+
+
+def _cache_load(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.int8:
+        # bf16 times a power of two: exact, in bf16 as the reference.
+        return x.to(torch.bfloat16) * 2.0 ** KV_SCALE_EXP
+    return x
+
+
+def attn_init(gen, cfg: AttnConfig, dtype=torch.float32,
+              device=None) -> Params:
+    d, hd = cfg.d_model, cfg.head_dim
+    kw = dict(dtype=dtype, device=device)
+    p = {
+        "wq": dense_init(gen, d, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw),
+        "wk": dense_init(gen, d, cfg.n_kv * hd, bias=cfg.qkv_bias, **kw),
+        "wv": dense_init(gen, d, cfg.n_kv * hd, bias=cfg.qkv_bias, **kw),
+        "wo": dense_init(gen, cfg.n_heads * hd, d, **kw),
+    }
+    if cfg.qk_norm:
+        p["qnorm"] = rmsnorm_init(hd, device=device)
+        p["knorm"] = rmsnorm_init(hd, device=device)
+    return p
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg: AttnConfig,
+         positions: torch.Tensor):
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    if cfg.mrope_sections is not None and positions.dim() == 2:
+        # text-only M-RoPE: all three position streams coincide
+        positions = torch.stack([positions] * 3, dim=-1)
+    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    k = dense(p["wk"], x).reshape(B, S, cfg.n_kv, hd)
+    v = dense(p["wv"], x).reshape(B, S, cfg.n_kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["qnorm"], q)
+        k = rmsnorm(p["knorm"], k)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, theta=cfg.rope_theta,
+                       mrope_sections=cfg.mrope_sections)
+        k = apply_rope(k, positions, theta=cfg.rope_theta,
+                       mrope_sections=cfg.mrope_sections)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, n_rep: int) -> torch.Tensor:
+    """Grouped scaled-dot-product attention. q (B,S,H,hd), k/v (B,T,kv,hd),
+    mask (S, T) or (B, S, T) additive. f32 scores and softmax; the weights
+    are cast to v's dtype before the second product, as the reference."""
+    B, S, H, hd = q.shape
+    kv = k.shape[2]
+    q = q.reshape(B, S, kv, n_rep, hd)
+    logits = torch.einsum("bsgrd,btgd->bgrst", q.float(), k.float())
+    logits = logits / math.sqrt(hd)
+    if mask is not None:
+        m = mask if mask.dim() == 3 else mask[None]
+        logits = logits + m[:, None, None, :, :]
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bgrst,btgd->bsgrd", w, v)
+    return out.reshape(B, S, H * hd)
+
+
+def _refuse(cfg: AttnConfig) -> None:
+    if not cfg.causal:
+        raise NotImplementedError(
+            "non-causal attention (whisper's encoder) is not ported yet: "
+            "ROADMAP.md §1 M9c (encdec); K5 is causal only")
+    if cfg.window is not None:
+        raise NotImplementedError(
+            f"windowed attention (window={cfg.window}; mixtral, "
+            "recurrentgemma) is not ported yet: ROADMAP.md §1 M9b")
+
+
+def attention(p: Params, x: torch.Tensor, cfg: AttnConfig,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence (prefill) attention.
+
+    The reference's two causal branches (the dense ``_sdpa`` up to 4096
+    tokens and the chunked flash scan above) compute one function; here it
+    is one call of K5 on q/k/v in bf16: a CUDA tensor launches the kernel,
+    a CPU tensor takes its plain version. The output is cast back to x's
+    dtype.
+    """
+    _refuse(cfg)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    q, k, v = _qkv(p, x, cfg, positions)
+    bf16 = torch.bfloat16
+    out = flash_mha(q.to(bf16), k.to(bf16), v.to(bf16)).to(x.dtype)
+    return dense(p["wo"], out)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor   # (B, S_max, n_kv, hd)
+    v: torch.Tensor
+    length: int       # tokens written so far
+
+
+def init_cache(cfg: AttnConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> KVCache:
+    if dtype is None:
+        dtype = torch.int8 if cfg.cache_dtype == "int8" else torch.bfloat16
+    shape = (batch, max_len, cfg.n_kv, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=0)
+
+
+def decode_step(p: Params, x: torch.Tensor, cache: KVCache, cfg: AttnConfig,
+                ) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode. x: (B, 1, d). For sliding-window configs the cache
+    is a ring buffer of size window (positions wrap), so a long context
+    costs O(window) memory.
+
+    The new K/V are written into the cache tensors in place (the reference
+    returns new arrays); the returned cache holds the same tensors with
+    ``length + 1``.
+    """
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"decode_step takes one token; got S={S}")
+    T = cache.k.shape[1]
+    length = cache.length
+    pos = torch.full((B, 1), length, dtype=torch.long, device=x.device)
+    q, k, v = _qkv(p, x, cfg, pos)
+    # The reference's dynamic_update_slice clamps a start past the end.
+    slot = (length % T) if cfg.window is not None else min(length, T - 1)
+    cache.k[:, slot] = _cache_store(k[:, 0], cache.k.dtype)
+    cache.v[:, slot] = _cache_store(v[:, 0], cache.v.dtype)
+    kpos = torch.arange(T, device=x.device)
+    if cfg.window is not None:
+        # ring buffer: valid entries are the last min(len+1, T) writes
+        age = (slot - kpos) % T
+        valid = age < min(length + 1, T)
+    else:
+        valid = kpos <= length
+    mask = torch.where(valid, 0.0, NEG_INF)[None, None, :]    # (1,1,T)
+    out = _sdpa(q, _cache_load(cache.k), _cache_load(cache.v),
+                mask.expand(B, 1, T), cfg.n_heads // cfg.n_kv)
+    y = dense(p["wo"], out)
+    return y, KVCache(k=cache.k, v=cache.v, length=length + 1)

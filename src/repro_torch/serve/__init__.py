@@ -153,8 +153,20 @@ class JetServer:
             # The weights and the packed-weight cache were made on this
             # thread's stream: the worker's first launch must come after.
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            self._prime_stream()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
+
+    def _prime_stream(self) -> None:
+        """Gives this server's stream device memory of its own before the
+        first request. The caching allocator keeps freed blocks per stream,
+        so the first batch on a fresh stream would otherwise call cudaMalloc,
+        which CUDA serializes across threads, inside its requests'
+        latency. One byte goes to the device and back on the stream, which
+        leaves it a cached small-pool segment (2 MB, for blocks up to 1 MB:
+        a served batch of the models here, in and out). No kernel runs."""
+        with torch.cuda.stream(self.stream):
+            torch.zeros(1, dtype=torch.int8).to(self.device).cpu()
 
     # -- model function -------------------------------------------------------
     def _build(self) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -521,6 +521,24 @@ def test_server_launches_on_its_own_stream(dev, monkeypatch):
     assert cpu.stream is None and cpu.launch_streams == set()
 
 
+def test_server_serves_its_first_batch_without_a_cuda_malloc(dev):
+    """The server primes its stream at start, so that no request waits on
+    the cudaMalloc of its stream's first device memory."""
+    q = _qmlp(np.random.default_rng(8), [16, 64, 32, 5])
+    x = np.random.default_rng(9).integers(-60, 60, (64, 64, 16)).astype(np.int8)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()        # no stream keeps a cached block
+    srv = JetServer(q, device=dev, max_batch=64, window_us=5000.0)
+    try:
+        m0 = torch.cuda.memory_stats(dev)["segment.all.allocated"]
+        reqs = [srv.submit(e) for e in x]
+        for r in reqs:
+            assert r.event.wait(60) and r.error is None
+        assert torch.cuda.memory_stats(dev)["segment.all.allocated"] == m0
+    finally:
+        srv.close()
+
+
 @pytest.mark.parametrize("mode", ["fused", "unfused"])
 def test_fleet_replicas_launch_on_distinct_streams(dev, monkeypatch, mode):
     """Four replicas a tenant on the card: every gathered output equals the
@@ -564,3 +582,106 @@ def test_fleet_replicas_launch_on_distinct_streams(dev, monkeypatch, mode):
         assert s.stats.batch_sizes, "a replica served no batch"
         assert s.launch_streams == {s.stream.cuda_stream}
     assert {h for _, h in seen} == set(handles)
+
+
+# -- the dense LM path (models.build) ------------------------------------------
+
+# max |diff| / max |logit| between two runs of the same weights. K5 bf16 packs
+# the unnormalized softmax weights to bf16 and divides at the end; the plain
+# version keeps them in f32, and decode's attention casts the normalized
+# weights to bf16. Each moves every logit by about one bf16 ulp of the
+# largest (2^-8 = 0.4%); 0.02 is five, as tests/test_torch_lm.py holds the
+# port to the JAX package.
+LOGIT_TOL = 0.02
+LM_ARCHS = ["qwen3-14b", "granite-8b", "qwen1.5-32b"]
+
+
+def _lm_cfg(name):
+    """The reduced arch, or (name + "-hd128") qwen3-14b's head dim and GQA
+    ratio at 4 layers: the shapes the full model gives K5."""
+    from repro_torch import configs
+    if name.endswith("-hd128"):
+        return dataclasses.replace(
+            configs.get_reduced(name[:-6]), n_layers=4, d_model=640,
+            n_heads=5, n_kv=1, head_dim=128, d_ff=1024, vocab=1024)
+    return configs.get_reduced(name)
+
+
+def _rel(got, want):
+    return float((got.float().cpu() - want.float().cpu()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.fixture
+def bf16_full_reduction():
+    """bf16 GEMMs on the card reduce in f32, as XLA's and torch's CPU ones."""
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    yield
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
+
+
+@pytest.mark.parametrize("name", LM_ARCHS + ["qwen3-14b-hd128"])
+def test_transformer_on_cuda_equals_cpu(dev, bf16_full_reduction, name):
+    """The same weights on the card and on the CPU: K5 launches once a
+    layer a forward on the card, the plain version runs on the CPU."""
+    from repro_torch.models import Transformer, init_params
+    cfg = _lm_cfg(name)
+    params = init_params(cfg, device=torch.device("cpu"), seed=1)
+    cpu = Transformer(cfg, params)
+    gpu = Transformer(cfg, {
+        "embedding": {"emb": params["embedding"]["emb"].to(dev)},
+        "final_norm": {k: v.to(dev) for k, v in params["final_norm"].items()},
+        "layers": [_to(p, dev) for p in params["layers"]]})
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 200)))
+    launches.reset()
+    got, _ = gpu(toks.to(dev))
+    torch.cuda.synchronize()
+    assert launches.snapshot().get("flash_attn", 0) == cfg.n_layers
+    want, _ = cpu(toks)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= LOGIT_TOL
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("name", ["granite-8b", "qwen3-14b-hd128"])
+def test_decode_matches_forward_on_cuda(dev, bf16_full_reduction, name):
+    """Decode from an empty cache reproduces the forward's logits on the
+    card, as tests/test_arch_smoke.py holds the reference's."""
+    from repro_torch.models import build
+    cfg = _lm_cfg(name)
+    model = build(cfg, device=dev, seed=0)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 6))).to(dev)
+    full, _ = model(toks)
+    cache = model.init_cache(2, 32)
+    launches.reset()
+    outs = []
+    for t in range(6):
+        lg, cache = model.decode_step(toks[:, t:t + 1], cache)
+        outs.append(lg)
+    assert launches.snapshot().get("flash_attn", 0) == 0
+    dec = torch.cat(outs, dim=1)
+    assert _rel(dec, full) <= LOGIT_TOL
+    assert bool((dec.argmax(-1) == full.argmax(-1)).all())
+
+
+def test_window_attention_on_cuda_raises(dev):
+    from repro_torch.models import attention as A
+    cfg = A.AttnConfig(d_model=64, n_heads=4, n_kv=2, head_dim=16, window=8)
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = A.attn_init(g, cfg, dtype=torch.bfloat16, device=dev)
+    x = torch.zeros((1, 16, 64), dtype=torch.bfloat16, device=dev)
+    launches.reset()
+    with pytest.raises(NotImplementedError, match="M9b"):
+        A.attention(p, x, cfg)
+    with pytest.raises(NotImplementedError, match="M9c"):
+        A.attention(p, x, dataclasses.replace(cfg, window=None, causal=False))
+    assert launches.snapshot().get("flash_attn", 0) == 0

@@ -3,9 +3,12 @@
 ``JetServer(device="cpu")`` in every mode must serve outputs bit-identical
 to the JAX ``JetServer(interpret=True)`` on the same quantized model.
 """
+import gc
+
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.data import JetConfig, jet_batch
 from repro.models import deepsets as jds
@@ -129,6 +132,38 @@ def test_launch_serve_runs_on_cpu(model, mode, capsys):
     assert 0.0 <= rep["acc_int8"] <= 1.0 and 0.0 <= rep["acc_float"] <= 1.0
     assert rep["p99_us"] >= rep["p50_us"] > 0
     assert rep["dequeue_p50_us"] >= 0 and rep["window_p50_us"] >= 0
+
+
+@pytest.mark.parametrize("frozen_before", [False, True])
+def test_serving_window_freezes_the_heap_and_counts_full_collections(
+        frozen_before):
+    """`launch.serve`'s serving window collects and freezes the heap, counts
+    the full collections that still run inside it, and unfreezes the heap
+    after it, an earlier freeze too, so that nothing stays out of
+    collection."""
+    if frozen_before:
+        gc.freeze()
+    try:
+        with tserve._serving_window(torch.device("cpu")) as window:
+            assert gc.get_freeze_count() > 0
+            gc.collect()
+        assert gc.get_freeze_count() == 0
+        assert window["full_collections"] == 1 and window["collect_ms"] > 0
+        assert window["cuda_mallocs"] is None
+    finally:
+        gc.unfreeze()
+
+
+@pytest.mark.parametrize("argv", [["--model", "jsc-m"],
+                                  ["--mix", "deepsets-32,jsc-m",
+                                   "--replicas", "2"]])
+def test_launch_serve_reports_its_serving_window(argv):
+    rep = tserve.main(argv + ["--device", "cpu", "--events", "8",
+                              "--train-steps", "2"])
+    window = rep["serving_window"]
+    assert window["collect_ms"] > 0 and window["full_collections"] >= 0
+    assert window["cuda_mallocs"] is None
+    assert gc.get_freeze_count() == 0
 
 
 @pytest.mark.parametrize("models", [(None,), ("mlp", None), ("mlp", "mlp")])
