@@ -16,7 +16,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      widths and an odd-width chain, x aligned and not), and K4 on column
      slices and misaligned views: the INT8 kernels with torch.equal
      (global_agg's two impls also against each other), flash attention
-     within the JAX tests' tolerance (2e-5 for f32, 2e-2 for bf16);
+     within the JAX tests' tolerance (2e-5 for f32, 2e-2 for bf16), with a
+     sliding window too (windows of 1, 63, 64 and 100 keys and wider than
+     S; S and T on and off the tiles; GQA through flash_mha);
   4. the serving path through ``repro_torch.launch.serve.main`` on CUDA:
      deepsets-32 fused, jsc-m fused and jsc-m unfused, each with the launch
      counts set to 0 just before and read just after; every served output
@@ -46,7 +48,11 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      K2 beside K1's five launches of the same batch and at three chain
      depths; K3 for one event, at three phi depths, at 1, 2 and 4 events a
      block and on a misaligned x; the launch floor (a 1-element zero_());
-     and SDPA's own max |err| in f32 against the plain version;
+     and SDPA's own max |err| in f32 against the plain version; K5 bf16 at
+     mixtral's layer shapes (B*H 32, S 8192, hd 128) with its window of
+     4096 and without, each beside its bound and SDPA (the window as a
+     boolean band mask), and at minicpm3's MLA shapes (B*H 40, S 2048, the
+     96-wide q/k and the zero-padded v);
   7. the H100 latency model (``repro_torch.core.h100_model``) against the
      card: its measured constants calibrated anew (``h100_model.calibrate``:
      the launch floor, K2 at 2/5/9 layers and K3 for one event at phi
@@ -68,11 +74,30 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      FLASH_TOL); decode of the first 16 tokens from an empty cache against
      the forward's logits (within LM_DECODE_TOL, with the top-1
      agreement); and the prefill, K5's share of it and decode a token,
-     each beside its bound, with the card's name and power limit.
+     each beside its bound, with the card's name and power limit;
+  9. the MoE, sliding-window, MLA and M-RoPE paths through the same
+     ``build``, each model at its published width with random bf16 weights
+     from a seed, freed before the next, its peak memory printed, and each
+     prefill forward with the launch counts set to 0 just before and read
+     just after (K5 bf16 exactly once a layer): mixtral-8x7b cut to 16 of
+     its 32 layers (a prefill of 8192 tokens, so its window of 4096 binds;
+     layer 0's windowed attention through K5 against its plain version on
+     one KV group; the share of expert choices dropped by capacity; decode
+     of the first 16 tokens against the forward before its first dropped or
+     re-routed position), minicpm3-4b whole (62 MLA layers, a prefill of
+     2048; layer 0's MLA through K5 against its plain version; 16 decode
+     steps), llama4-maverick one pattern group (a dense and a 128-expert
+     layer with the shared expert; a prefill of 512) and qwen2-vl-72b at 2
+     of 80 layers (a prefill of 2048 from the vision stub's embeds with
+     three-stream positions); for mixtral and minicpm3 the prefill and
+     decode a token beside their bounds, K5's and the experts' shares and
+     the idle share.
 It then prints the ``kernels`` JSON line (K5 bf16's numbers are phase 8's:
 its launches in the prefill and its time at one layer's shapes, with those
-of the phase-5/6 entry point under ``entry_point``) and, last, the device
-JSON line.
+of the phase-5/6 entry point under ``entry_point``, and phase 9's in-model
+calls and the mixtral/minicpm3 shapes of phase 6 under ``paths``; its
+``launches`` sums every LM prefill's count) and, last, the device JSON
+line.
 TF32 is off throughout, so the plain versions' f32 products are f32.
 
 It exits nonzero, with no result, where CUDA is absent or where the rest of
@@ -110,6 +135,14 @@ RAGGED_FLASH = ((2, 200, 200, 64, True), (2, 130, 300, 128, False),
                 (2, 300, 130, 128, True), (1, 257, 257, 256, True),
                 (2, 70, 190, 256, False), (1, 77, 77, 5, True),
                 (1, 100, 61, 80, False))
+# (BH, S, T, d, window) with the causal mask: a window of one key, of one
+# key tile less one and exactly one (64 keys), off the tiles, and wider than
+# S; S and T on and off the tiles (tests/test_torch_cuda.py).
+WINDOWED_FLASH = ((2, 256, 256, 64, 1), (2, 256, 256, 128, 63),
+                  (2, 256, 256, 128, 64), (2, 300, 300, 128, 100),
+                  (1, 200, 200, 64, 500), (2, 130, 300, 128, 64),
+                  (2, 300, 130, 128, 63), (1, 257, 257, 256, 100),
+                  (3, 384, 384, 96, 100), (2, 1024, 1024, 128, 300))
 # The design of the kernels redesigned since their first port.
 DESIGN = {
     "mm_int8": ("mma.sync m16n8k32 s8.s8.s32 (no .satfinite); 32-row tiles, "
@@ -387,22 +420,24 @@ def _heads(x, b, h, s, hd):
     return x.transpose(1, 2).reshape(b * h, s, hd).contiguous()
 
 
-def mha_plain(q, k, v):
+def mha_plain(q, k, v, scale=None, window=None):
     """flash_mha's plain version: the GQA repeat and the (B*H, S, hd)
     layout around flash_attention_ref, on the tensors' own device."""
     from repro_torch.kernels.flash_attn import flash_attention_ref
     b, s, h, hd = q.shape
     n_rep = h // k.shape[2]
     kr, vr = (t.repeat_interleave(n_rep, dim=2) for t in (k, v))
-    out = flash_attention_ref(*(_heads(t, b, h, s, hd) for t in (q, kr, vr)))
+    out = flash_attention_ref(*(_heads(t, b, h, s, hd) for t in (q, kr, vr)),
+                              scale=scale, window=window)
     return out.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
 
 
 def check_flash(dev, rng) -> dict:
     """tests/test_flash_attn.py:23-28's (BH, S, d, bq, bk) list x {f32, bf16}
     (causal), non-causal once, the ragged shapes of RAGGED_FLASH in both,
-    and flash_mha at S in {96, 200, 256} with 1, 2 and 4 KV heads in f32
-    and bf16."""
+    flash_mha at S in {96, 200, 256} with 1, 2 and 4 KV heads in f32
+    and bf16, and the windows of WINDOWED_FLASH in both (and flash_mha with
+    a window, mixtral's GQA ratio)."""
     from repro_torch.kernels.flash_attn import (flash_attention,
                                                 flash_attention_ref, flash_mha)
     err = {f"flash_attn_{dt}": 0.0 for dt in FLASH_TOL}
@@ -430,10 +465,25 @@ def check_flash(dev, rng) -> dict:
                    mha_plain(q, k, v), FLASH_TOL[dt])
         err[f"flash_attn_{dt}"] = max(err[f"flash_attn_{dt}"], e)
         n[dt] += 1
+    n_win = dict.fromkeys(FLASH_TOL, 0)
+    for dt, (bh, s, t, d, w) in itertools.product(FLASH_TOL, WINDOWED_FLASH):
+        q = _normal(rng, (bh, s, d), dev, dt)
+        k, v = (_normal(rng, (bh, t, d), dev, dt) for _ in range(2))
+        e = _close(flash_attention(q, k, v, block_q=s, block_k=t, window=w),
+                   flash_attention_ref(q, k, v, window=w), FLASH_TOL[dt])
+        err[f"flash_attn_{dt}"] = max(err[f"flash_attn_{dt}"], e)
+        n_win[dt] += 1
     for dt in FLASH_TOL:
-        print(f"[check] flash_attn {dt}: {n[dt]} cases within {FLASH_TOL[dt]} "
-              f"of the plain version on the card (max |err| "
-              f"{err[f'flash_attn_{dt}']:.3e})")
+        q = _normal(rng, (2, 600, 8, 128), dev, dt)
+        k, v = (_normal(rng, (2, 600, 2, 128), dev, dt) for _ in range(2))
+        e = _close(flash_mha(q, k, v, window=100),
+                   mha_plain(q, k, v, window=100), FLASH_TOL[dt])
+        err[f"flash_attn_{dt}"] = max(err[f"flash_attn_{dt}"], e)
+        n_win[dt] += 1
+    for dt in FLASH_TOL:
+        print(f"[check] flash_attn {dt}: {n[dt]} cases and {n_win[dt]} with a "
+              f"window within {FLASH_TOL[dt]} of the plain version on the "
+              f"card (max |err| {err[f'flash_attn_{dt}']:.3e})")
     return err
 
 
@@ -856,6 +906,93 @@ def time_flash(paths: dict, err: dict) -> list:
     return out
 
 
+# The (B*H, S, d) tensors the prefills of phase 9 hand K5 a layer:
+# mixtral-8x7b (src/repro/configs/archs.py:34; 32 heads on 8 KV heads, hd
+# 128, window 4096) at S = 8192, and minicpm3-4b's MLA (:108; 40 heads, q/k
+# 64 + 32 wide, v 64 zero-padded to 96, scale 1/sqrt(96)) at S = 2048.
+K5_MODEL_SHAPES = {
+    "mixtral-8x7b": dict(bh=32, s=8192, d=128, window=4096, vd=128),
+    "minicpm3-4b": dict(bh=40, s=2048, d=96, window=None, vd=64),
+}
+
+
+def _visible_pairs(s: int, window=None) -> int:
+    """(query, key) pairs a causal mask with ``window`` lets through."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def time_flash_models(dev) -> dict:
+    """Phase 6, K5 bf16 at phase 9's layer shapes (K5_MODEL_SHAPES): each
+    beside its bound (2*(d + vd) operations a visible pair), its plain
+    version and SDPA on the same tensors (the window as a boolean band
+    mask); mixtral's with its window and without, the same inputs in
+    turn."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_ref)
+    rng = np.random.default_rng(SEED + 6)
+    out = {}
+    for name, c in K5_MODEL_SHAPES.items():
+        bh, s, d = c["bh"], c["s"], c["d"]
+        q, k, v = (_normal(rng, (bh, s, d), dev, "bfloat16") for _ in range(3))
+        v[..., c["vd"]:] = 0
+        scale = d ** -0.5
+        for w in ((c["window"], None) if c["window"] else (None,)):
+            # 20 calls: the windowed / causal ratio below is a gate
+            kt = _time_ms(lambda: flash_attention(q, k, v, scale=scale,
+                                                  window=w),
+                          iters=20, warmup=3, graph=False)
+            pt = _time_ms(lambda: flash_attention_ref(q, k, v, scale=scale,
+                                                      window=w),
+                          iters=2, warmup=1, graph=False)
+            q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+            if w is None:
+                lib = lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, scale=scale)
+            else:
+                i = torch.arange(s, device=dev)
+                band = ((i[None, :] <= i[:, None])
+                        & (i[None, :] > i[:, None] - w))
+                lib = lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=band, scale=scale)
+            lt = _time_ms(lib, iters=5, warmup=1, graph=False)
+            # a score dot of d and a value product of vd (MLA's v is
+            # zero-padded from vd to d) a visible pair
+            ops = 2 * (d + c["vd"]) * bh * _visible_pairs(s, w)
+            bound = _bound(4 * q.numel() * q.element_size(), ops,
+                           BF16_OPS_PER_S)
+            key = f"{name} window {w}" if c["window"] else name
+            out[key] = dict(ms=kt["ms"], eager_ms=kt["eager_ms"],
+                            plain_ms=pt["ms"], library_ms=lt["ms"], **bound,
+                            bound_share=bound["bound_ms"] / kt["ms"],
+                            tflops=ops / (kt["ms"] * 1e-3) / 1e12,
+                            shape=f"{name} prefill, one layer: B*H={bh}, "
+                                  f"S=T={s}, d={d}, bf16, causal, window {w}")
+            print(f"[time] flash_attn_bfloat16 at {key} (B*H={bh}, S={s}, "
+                  f"d={d}): kernel_ms {kt['ms']:.4f}, bound_ms "
+                  f"{bound['bound_ms']:.4f} ({bound['bound_by']}; "
+                  f"{bound['bound_ms'] / kt['ms']:.3f} of it), plain_ms "
+                  f"{pt['ms']:.3f}, SDPA {lt['ms']:.4f} ms")
+        if c["window"]:
+            r = (out[f"{name} window {c['window']}"]["ms"]
+                 / out[f"{name} window None"]["ms"])
+            out[name + " windowed / causal"] = r
+            print(f"[time] flash_attn_bfloat16 at {name}: windowed / causal "
+                  f"{r:.3f} (visible pairs {_visible_pairs(s, c['window'])} "
+                  f"/ {_visible_pairs(s)} = "
+                  f"{_visible_pairs(s, c['window']) / _visible_pairs(s):.3f})")
+            if r > 0.85:
+                raise AssertionError(f"K5 with the window takes {r:.3f} of "
+                                     f"the causal call: tiles not skipped")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_deepsets_shapes(dev, rng, x, phi, rho) -> dict:
     """K3 beside the served batch ``x``: one event (the card's per-event
     device time); phi at 2, 3 and 6 layers of width 32 (the cost of one
@@ -1178,8 +1315,11 @@ def _profile(fn, label: str, top: int = 6) -> dict:
     print(f"[lm] profile {label}: wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}); "
           + "; ".join(f"{ms:.3f} ms x{n} {k[:60]}" for ms, n, k in rows[:top]))
+    # Kernel names cut to 80 characters: templated PyTorch kernels' names
+    # run to 600, and the kernels line carries four traces.
     return {"wall_ms": wall, "busy_ms": busy,
-            "top": [dict(ms=ms, count=n, name=k) for ms, n, k in rows[:top]]}
+            "top": [dict(ms=ms, count=n, name=k[:80])
+                    for ms, n, k in rows[:top]]}
 
 
 def drive_lm(dev, err: dict) -> dict:
@@ -1382,17 +1522,448 @@ def drive_lm(dev, err: dict) -> dict:
     return out
 
 
+# -- phase 9: the MoE, sliding-window, MLA and M-RoPE paths -------------------
+
+# name -> (layers kept, None for all; prefill length), at the published widths
+# of src/repro/configs/archs.py, bf16 weights random from SEED:
+#  * mixtral-8x7b (:34): 16 of its 32 layers, 23.35 G weights, 46.7 GB (all
+#    32 would be 93 GB); S = 8192, so its window of 4096 binds for the last
+#    4096 queries.
+#  * minicpm3-4b (:108): all 62 MLA layers, 4.07 G weights.
+#  * llama4-maverick (:16): one pattern group, a dense layer and a MoE layer
+#    of 128 experts with the shared expert, 17.5 G weights.
+#  * qwen2-vl-72b (:146): 2 of 80 layers, 3.0 G weights, from the vision
+#    stub's embeds with three-stream (M-RoPE) positions.
+LM_FAMILIES = {"mixtral-8x7b": (16, 8192), "minicpm3-4b": (None, 2048),
+               "llama4-maverick-400b-a17b": (2, 512),
+               "qwen2-vl-72b": (2, 2048)}
+def _build_lm(dev, name: str, n_layers):
+    """``build`` at the published width, cut to ``n_layers``; prints its
+    size."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build
+    cfg = configs.get(name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n = sum(p.numel() for p in model.parameters())
+    print(f"[lm9] {name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {cfg.n_kv} KV, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, experts {cfg.n_experts} top-{cfg.top_k}, window "
+          f"{cfg.window}): {n} weights, {w_bytes / 1e9:.3f} GB, random from "
+          f"seed {SEED} in {init_s:.2f} s")
+    return cfg, model, w_bytes
+
+
+def _counted_prefill(model, cfg, b: int, s: int, **inputs):
+    """One prefill forward with the launch counts set to 0 just before and
+    read just after; fails unless K5 launched exactly once a layer and the
+    logits are finite f32 of the full shape."""
+    import torch
+    from repro_torch.kernels import launches
+    launches.reset()
+    logits, aux = model(inputs.pop("toks", None), **inputs)
+    torch.cuda.synchronize()
+    counts = launches.snapshot()
+    if counts != {"flash_attn": cfg.n_layers}:
+        raise AssertionError(f"{cfg.name}: a prefill launched {counts}; want "
+                             f"flash_attn x {cfg.n_layers}, one a layer")
+    if (logits.shape != (b, s, cfg.vocab) or logits.dtype != torch.float32
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{cfg.name}: prefill logits "
+                             f"{tuple(logits.shape)} {logits.dtype}")
+    print(f"[lm9] {cfg.name} prefill B={b} S={s}: launches {counts}; logits "
+          f"{tuple(logits.shape)} f32, finite; aux {float(aux):.4f}")
+    return logits, counts
+
+
+def _decode(model, toks, n: int, pick=None):
+    """Decode of the first ``n`` tokens from an empty cache of LM_CACHE, and
+    each MoE layer's routing in call order (step by step, the layers in
+    order); with ``pick``, each MoE call routes the experts it gives
+    (``moe.routing_log``)."""
+    import torch
+    from repro_torch.models import moe as M
+    cache = model.init_cache(toks.shape[0], LM_CACHE)
+    out, log = [], []
+    with M.routing_log(log, pick):
+        for t in range(n):
+            lg, cache = model.decode_step(toks[:, t:t + 1], cache)
+            out.append(lg)
+    torch.cuda.synchronize()
+    return torch.cat(out, dim=1), log
+
+
+def _lm_times(model, toks, n: int) -> tuple:
+    """Prefill ms, and decode ms a token (the mean of tokens 1..n-1 after
+    token 0 from an empty cache)."""
+    pre = _time_ms(lambda: model(toks), iters=2, warmup=1, graph=False)
+    cache = model.init_cache(toks.shape[0], LM_CACHE)
+    steps = iter(range(n))
+
+    def step():
+        nonlocal cache
+        t = next(steps)
+        _, cache = model.decode_step(toks[:, t:t + 1], cache)
+
+    step()
+    dec = _time_ms(step, iters=n - 1, warmup=0, graph=False)
+    return pre["ms"], dec["ms"], cache
+
+
+def _decode_check(name, dec, full) -> dict:
+    """Decode against the forward's logits at the same positions, within
+    LM_DECODE_TOL."""
+    import torch
+    f = full[:, :dec.shape[1]]
+    rel = float((dec - f).abs().max() / f.abs().max())
+    top1 = float((dec.argmax(-1) == f.argmax(-1)).float().mean())
+    if not bool(torch.isfinite(dec).all()) or rel > LM_DECODE_TOL:
+        raise AssertionError(f"{name}: decode differs from the forward's "
+                             f"logits over {dec.shape[1]} positions: "
+                             f"{rel:.4e} (bound {LM_DECODE_TOL})")
+    return dict(rel=rel, top1=top1)
+
+
+def _phase9_times(name, cfg, model, toks, w_bytes, active_bytes, attn_ops,
+                  k5_call, moe_call=None) -> dict:
+    """Prefill and decode a token beside their bounds; the shares of K5's
+    call (and the MoE layer's) in the prefill, from their times at layer
+    0's shapes times the layers; the idle share from torch.profiler."""
+    b, s = toks.shape
+    pre_ms, dec_ms, cache = _lm_times(model, toks, LM_DECODE)
+    flops = 2.0 * b * s * cfg.active_param_count() + attn_ops
+    pre_bound = flops / BF16_OPS_PER_S * 1e3
+    kv_bytes = sum(sum(t.numel() * t.element_size() for t in c[:2])
+                   for c in cache["layers"])
+    act_bound = (active_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    all_bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    k5 = _time_ms(k5_call, iters=5, warmup=1, graph=False)
+    k5_share = cfg.n_layers * k5["ms"] / pre_ms
+    out = dict(prefill_ms=pre_ms, prefill_bound_ms=pre_bound,
+               prefill_tflop=flops / 1e12, decode_ms=dec_ms,
+               decode_bound_ms=act_bound, decode_all_weights_ms=all_bound,
+               k5_call_ms=k5["ms"], k5_share=k5_share)
+    moe_txt = ""
+    if moe_call is not None:
+        moe = _time_ms(moe_call, iters=3, warmup=1, graph=False)
+        n_moe = sum(k == "attn_moe" for k in model.kinds)
+        out.update(moe_layer_ms=moe["ms"],
+                   moe_share=n_moe * moe["ms"] / pre_ms)
+        moe_txt = (f"; the MoE layer (router, dispatch, experts, combine) "
+                   f"{moe['ms']:.3f} ms x {n_moe} = {out['moe_share']:.4f} "
+                   f"of the prefill")
+    out["profile_prefill"] = _profile(lambda: model(toks),
+                                      f"{name} prefill B={b} S={s}")
+    print(f"[lm9] {_card_line()}")
+    print(f"[lm9] {name} prefill B={b} S={s}: {pre_ms:.3f} ms, bound "
+          f"{pre_bound:.3f} ms ({flops / 1e12:.3f} active TFLOP / 989 "
+          f"TFLOP/s bf16; {pre_bound / pre_ms:.3f} of the bound); K5's call "
+          f"at layer 0 {k5['ms']:.4f} ms x {cfg.n_layers} = {k5_share:.4f} "
+          f"of the prefill{moe_txt}")
+    moe_txt, all_txt = "", ""
+    if cfg.n_experts:
+        moe_txt = (f" (top-{cfg.top_k} of {cfg.n_experts} experts a layer: "
+                   f"what the design reads, as it skips an expert no token "
+                   f"chose)")
+        all_txt = f"; with every expert read {all_bound:.3f} ms"
+    print(f"[lm9] {name} decode B={b}: {dec_ms:.3f} ms a token (mean of "
+          f"tokens 1..{LM_DECODE - 1}); bound {act_bound:.3f} ms "
+          f"({act_bound / dec_ms:.3f} of it) = ({active_bytes} weight bytes "
+          f"a token reads{moe_txt} + {kv_bytes} cache bytes) / 3.35 "
+          f"TB/s{all_txt}")
+    return out
+
+
+def drive_mixtral(dev, err: dict) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attn import flash_mha
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as B
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    name = "mixtral-8x7b"
+    cfg, model, w_bytes = _build_lm(dev, name, LM_FAMILIES[name][0])
+    b, s = 1, LM_FAMILIES[name][1]
+    rng = np.random.default_rng(SEED + 9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    fwd = []
+    with M.routing_log(fwd):
+        logits, counts = _counted_prefill(model, cfg, b, s, toks=toks)
+    k = cfg.top_k
+    dropped = [r.dropped for r in fwd]
+    share = sum(dropped) / (len(fwd) * b * s * k)
+    first_drop = min((int((~r.keep[0]).any(-1).nonzero()[0])
+                      for r in fwd if r.dropped), default=s)
+    print(f"[lm9] {name} capacity {fwd[0].capacity} an expert (S={s}, "
+          f"top-{k}, "
+          f"factor {cfg.capacity_factor}): {sum(dropped)} of "
+          f"{len(fwd) * b * s * k} choices dropped ({share:.5f}); by layer "
+          f"{dropped}; the first dropped token is at position {first_drop}")
+
+    # Layer 0's windowed attention through K5 and its plain version, on one
+    # KV group (its 4 query heads), so the plain scores fit in 1.1 GB.
+    l0 = model.layers[0]
+    acfg = T._attn_cfg(cfg)
+    x0 = B.embed(model.embedding, toks)
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    q, kk, v = A._qkv(l0["attn"], T._norm(cfg, l0["ln1"], x0), acfg, pos)
+    rep = cfg.n_heads // cfg.n_kv
+    grp = [t.to(torch.bfloat16).contiguous()
+           for t in (q[:, :, :rep], kk[:, :, :1], v[:, :, :1])]
+    got = flash_mha(*grp, window=cfg.window)
+    want = mha_plain(*grp, window=cfg.window)
+    e = _close(got, want, FLASH_TOL["bfloat16"])
+    err["flash_attn_bfloat16"] = max(err["flash_attn_bfloat16"], e)
+    free = mha_plain(*grp)
+    binds = float((free.float() - want.float()).abs()[:, cfg.window:].max())
+    print(f"[lm9] {name} K5 in layer 0 with the window {cfg.window} (one KV "
+          f"group: q {tuple(grp[0].shape)}, k/v {tuple(grp[1].shape)}): max "
+          f"|err| {e:.3e} against the plain version (tolerance "
+          f"{FLASH_TOL['bfloat16']}); {_where_err(got, want, 'bfloat16')}; "
+          f"the window moves rows >= {cfg.window} by up to {binds:.3e}")
+    del got, want, free, grp
+
+    # Decode of the first tokens from an empty cache, against the forward at
+    # every position. Each decode step routes its token to the experts the
+    # forward chose for it, its gates from its own router: the two runs
+    # round apart, and a router near-tie would otherwise send a token to
+    # another expert and move it, and through attention the later ones, by
+    # order 1. Where the decode's own router would have chosen otherwise is
+    # printed, with the largest gap between the two runs' probabilities.
+    n_moe = len(fwd)
+
+    def pick(i):
+        t, layer = divmod(i, n_moe)
+        r = fwd[layer]
+        return r.expert_ids[:, t:t + 1], r.keep[:, t:t + 1]
+
+    dec, log = _decode(model, toks, LM_DECODE, pick)
+    if len(log) != LM_DECODE * n_moe:
+        raise AssertionError(f"{name}: {len(log)} MoE calls in "
+                             f"{LM_DECODE} decode steps of {n_moe} layers")
+    own, div = [], 0.0
+    for i, r in enumerate(log):
+        t, layer = divmod(i, n_moe)
+        want = fwd[layer]
+        div = max(div, float((r.probs[:, 0] - want.probs[:, t]).abs().max()))
+        if not torch.equal(r.expert_ids[:, 0].sort(-1).values,
+                           want.expert_ids[:, t].sort(-1).values):
+            own.append((t, layer))
+    chk = _decode_check(name, dec, logits)
+    print(f"[lm9] {name} decode of the first {LM_DECODE} tokens (ring caches "
+          f"of {min(LM_CACHE, cfg.window)}, each token routed to the "
+          f"forward's experts) against the forward's logits at all "
+          f"{LM_DECODE} positions: max |diff| / max |logit| {chk['rel']:.4e} "
+          f"(bound {LM_DECODE_TOL}), top-1 agreement {chk['top1']:.4f}; the "
+          f"router probabilities of the two runs differ by up to {div:.4e}; "
+          f"(position, layer) where the decode's own router chose other "
+          f"experts: {own or 'none'}")
+    del dec
+
+    # layer 0's MoE input, for its time
+    h = T._norm(cfg, l0["ln2"], x0 + A.attention(
+        l0["attn"], T._norm(cfg, l0["ln1"], x0), acfg))
+    mcfg = T._moe_cfg(cfg)
+    attn_ops = (4.0 * cfg.hd * cfg.n_heads * b * _visible_pairs(s, cfg.window)
+                * cfg.n_layers)
+    active = w_bytes - sum(k_ == "attn_moe" for k_ in model.kinds) * (
+        cfg.n_experts - cfg.top_k) * 3 * cfg.d_model * cfg.d_ff * 2
+    out = _phase9_times(
+        name, cfg, model, toks, w_bytes, active, attn_ops,
+        lambda: flash_mha(q, kk, v, window=cfg.window),
+        lambda: M.moe_forward(l0["moe"], h, mcfg))
+    out.update(launches=counts["flash_attn"], drop_share=share,
+               dropped_by_layer=dropped, first_drop=first_drop,
+               decode_rel_err=chk["rel"], decode_top1=chk["top1"],
+               decode_positions=LM_DECODE, router_divergence=div,
+               own_picks_differ=own,
+               weight_bytes=w_bytes,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print(f"[lm9] {name} peak memory {out['peak_gb']:.3f} GB")
+    return out
+
+
+def drive_minicpm3(dev, err: dict) -> dict:
+    import math
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import flash_mha
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as B
+    from repro_torch.models import transformer as T
+    name = "minicpm3-4b"
+    cfg, model, w_bytes = _build_lm(dev, name, LM_FAMILIES[name][0])
+    b, s = 1, LM_FAMILIES[name][1]
+    rng = np.random.default_rng(SEED + 10)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    logits, counts = _counted_prefill(model, cfg, b, s, toks=toks)
+
+    # Layer 0's MLA through K5 and its plain version: q = [q_nope | q_rope],
+    # k = [k_nope | k_rope over the heads], v zero-padded to their width.
+    l0 = model.layers[0]
+    mcfg = T._mla_cfg(cfg)
+    hx = T._norm(cfg, l0["ln1"], B.embed(model.embedding, toks))
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    qn, qr = A._mla_q(l0["mla"], hx, mcfg, pos)
+    c_kv, kr = A._mla_kv_a(l0["mla"], hx, mcfg, pos)
+    kn, v = A._mla_kv_b(l0["mla"], c_kv, mcfg)
+    qk = mcfg.qk_nope_dim + mcfg.qk_rope_dim
+    q = torch.cat([qn, qr], -1).to(torch.bfloat16)
+    kk = torch.cat([kn, kr.expand(-1, -1, cfg.n_heads, -1)], -1).to(
+        torch.bfloat16)
+    vp = F.pad(v, (0, qk - mcfg.v_head_dim)).to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(qk)
+    got = flash_mha(q, kk, vp, scale=scale)
+    want = mha_plain(q, kk, vp, scale=scale)
+    e = _close(got, want, FLASH_TOL["bfloat16"])
+    err["flash_attn_bfloat16"] = max(err["flash_attn_bfloat16"], e)
+    print(f"[lm9] {name} K5 in layer 0's MLA (q/k {tuple(q.shape)}, v padded "
+          f"from {mcfg.v_head_dim} to {qk}, scale 1/sqrt({qk})): max |err| "
+          f"{e:.3e} against the plain version (tolerance "
+          f"{FLASH_TOL['bfloat16']}); {_where_err(got, want, 'bfloat16')}")
+    del got, want
+
+    dec, _ = _decode(model, toks, LM_DECODE)
+    chk = _decode_check(name, dec, logits)
+    print(f"[lm9] {name} decode of the first {LM_DECODE} tokens (latent cache "
+          f"of {LM_CACHE}) against the forward's logits: max |diff| / max "
+          f"|logit| {chk['rel']:.4e} (bound {LM_DECODE_TOL}), top-1 agreement "
+          f"{chk['top1']:.4f}")
+    del dec
+    # The reference's MLA arithmetic a visible pair and head: a 96-wide
+    # score dot and a 64-wide value product.
+    attn_ops = (2.0 * (qk + mcfg.v_head_dim) * cfg.n_heads * b
+                * _visible_pairs(s) * cfg.n_layers)
+    out = _phase9_times(name, cfg, model, toks, w_bytes, w_bytes, attn_ops,
+                        lambda: flash_mha(q, kk, vp, scale=scale))
+    out.update(launches=counts["flash_attn"], decode_rel_err=chk["rel"],
+               decode_top1=chk["top1"], weight_bytes=w_bytes,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print(f"[lm9] {name} peak memory {out['peak_gb']:.3f} GB")
+    return out
+
+
+def drive_llama4(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as B
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    name = "llama4-maverick-400b-a17b"
+    cfg, model, w_bytes = _build_lm(dev, name, LM_FAMILIES[name][0])
+    b, s = 1, LM_FAMILIES[name][1]
+    rng = np.random.default_rng(SEED + 11)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    logits, counts = _counted_prefill(model, cfg, b, s, toks=toks)
+    # The shared expert on the card: the MoE layer's output for a token whose
+    # only choice capacity dropped is the shared expert's alone.
+    x = B.embed(model.embedding, toks)
+    x, _ = T.block_apply(model.kinds[0], model.layers[0], x, cfg, None)
+    l1 = model.layers[1]
+    x = x + A.attention(l1["attn"], T._norm(cfg, l1["ln1"], x),
+                        T._attn_cfg(cfg))
+    h = T._norm(cfg, l1["ln2"], x)
+    mcfg = T._moe_cfg(cfg)
+    r = M.moe_route(l1["moe"], h, mcfg)
+    out, _ = M.moe_forward(l1["moe"], h, mcfg)
+    shared = B.swiglu(l1["moe"]["shared"], h)
+    drop = (~r.keep[0, :, 0]).nonzero()[:, 0]
+    if len(drop) == 0 or not torch.equal(out[0, drop], shared[0, drop]):
+        raise AssertionError(f"{name}: {len(drop)} dropped tokens; the "
+                             f"shared expert alone must serve them")
+    kept = r.keep[0, :, 0]
+    moved = float((out[0, kept].float() - shared[0, kept].float()).abs().max())
+    print(f"[lm9] {name} MoE layer: {len(drop)} of {s} tokens dropped by "
+          f"capacity {r.capacity} ({cfg.n_experts} experts, top-"
+          f"{cfg.top_k}), each served by the "
+          f"shared expert alone (equal); the routed expert moves the kept "
+          f"ones by up to {moved:.3f}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"[lm9] {name} peak memory {peak:.3f} GB")
+    return dict(launches=counts["flash_attn"], dropped=len(drop),
+                weight_bytes=w_bytes, peak_gb=peak)
+
+
+def drive_qwen2_vl(dev) -> dict:
+    import numpy as np
+    import torch
+    name = "qwen2-vl-72b"
+    cfg, model, w_bytes = _build_lm(dev, name, LM_FAMILIES[name][0])
+    b, s = 1, LM_FAMILIES[name][1]
+    # A 2 x 24 x 32 patch grid (temporal, height, width), then text that
+    # resumes one past the grid's largest position in all three streams.
+    tt, hh, ww = torch.meshgrid(torch.arange(2), torch.arange(24),
+                                torch.arange(32), indexing="ij")
+    grid = torch.stack([tt, hh, ww], -1).reshape(-1, 3)
+    text = (32 + torch.arange(s - len(grid)))[:, None].expand(-1, 3)
+    pos = torch.cat([grid, text])[None].to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    embeds = torch.randn((b, s, cfg.d_model), generator=gen, device=dev,
+                         dtype=torch.float32).to(torch.bfloat16)
+    logits, counts = _counted_prefill(model, cfg, b, s, toks=None,
+                                      embeds=embeds, positions=pos)
+    flat, _ = model(None, embeds=embeds, positions=pos[..., 0])
+    moved = float((flat - logits).abs().max() / logits.abs().max())
+    print(f"[lm9] {name} positions: a {tuple(grid.shape)} patch grid then "
+          f"{s - len(grid)} text tokens; the same prefill with text-only "
+          f"positions moves the logits by {moved:.4e} of the largest")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"[lm9] {name} peak memory {peak:.3f} GB")
+    return dict(launches=counts["flash_attn"], weight_bytes=w_bytes,
+                peak_gb=peak, mrope_moved=moved)
+
+
+def drive_lm_families(dev, err: dict) -> dict:
+    """Phase 9: each model built, driven and freed in turn."""
+    import gc
+    import torch
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    for name, fn in (("mixtral-8x7b", lambda: drive_mixtral(dev, err)),
+                     ("minicpm3-4b", lambda: drive_minicpm3(dev, err)),
+                     ("llama4-maverick-400b-a17b", lambda: drive_llama4(dev)),
+                     ("qwen2-vl-72b", lambda: drive_qwen2_vl(dev))):
+        out[name] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def lm_path(kernels: list, lm: dict, err: dict) -> None:
     """K5 bf16's entry of the kernels line takes its main path's numbers,
     phase 8's prefill (launches, and time at a layer's shapes); its numbers
-    at the phase-5/6 entry point (S = 4096) move under ``entry_point``."""
+    at the phase-5/6 entry point (S = 4096) move under ``entry_point``, and
+    each phase-9 model's counted prefill (its own run, the counts set to 0
+    before it) and its K5 times under ``paths[name]``."""
     k5 = next(k for k in kernels if k["name"] == "flash_attn_bfloat16")
     entry = {key: k5.pop(key) for key in
              ("launches", "ms", "eager_ms", "plain_ms", "library_ms",
               "library_max_abs_err", "bound_ms", "bound_by", "bytes", "ops",
               "tflops", "bound_share", "shape")}
+    families = lm.pop("families")
+    shapes = lm.pop("k5_model_shapes")
     k5.update(lm.pop("k5"), max_abs_err=err["flash_attn_bfloat16"],
               entry_point=entry, lm=lm)
+    k5["paths"] = {LM_ARCH: {"launches": k5["launches"]}}
+    for name, f in families.items():
+        k5["paths"][name] = {"launches": f["launches"]}
+        for key, t in shapes.items():
+            if key.startswith(name) and isinstance(t, dict):
+                k5["paths"][name][key] = t
+        if name + " windowed / causal" in shapes:
+            k5["paths"][name]["windowed_over_causal"] = shapes[
+                name + " windowed / causal"]
+    k5["families"] = families
 
 
 def main() -> int:
@@ -1421,8 +1992,12 @@ def main() -> int:
     drive_fleet()
     paths = drive_entry_points(dev, err)
     kernels = time_kernels(dev, runs, err, paths)
+    shapes = time_flash_models(dev)
     check_model(dev)
-    lm_path(kernels, drive_lm(dev, err), err)
+    lm = drive_lm(dev, err)
+    lm["families"] = drive_lm_families(dev, err)
+    lm["k5_model_shapes"] = shapes
+    lm_path(kernels, lm, err)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -39,8 +39,9 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     # x, out, m, f, row_stride, shift, mean, impl, stream
     "global_agg_launch": [_P, _P, _I, _I, _L, _I, _I, _I, _P],
-    # q, k, v, o, bh, s, t, d, causal, scale, bf16, stream
-    "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, bh, s, t, d, causal, window, scale, bf16, stream
+    "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                          _P],
     # x, w, bias, out, m, k, n, shift, relu, out_int8, stream
     "mm_int8_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w, b, meta, out, rows, k0, block_rows, stride, smem_bytes, stream

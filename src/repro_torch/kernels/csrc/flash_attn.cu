@@ -1,11 +1,13 @@
 // K5 (flash_attn): blocked attention with an online softmax, forward only.
 // q (BH, S, d), k and v (BH, T, d), in f32 or bf16, with an optional causal
-// mask (key t is visible to query s where t <= s); the output (BH, S, d) is
+// mask (key t is visible to query s where t <= s) and, on a causal mask, an
+// optional window W (t visible where s - W < t <= s: sliding-window
+// attention, src/repro/models/attention.py:116-123); the output (BH, S, d) is
 // written in q's type. Both kernels compute what the Pallas kernel computes:
-// scores dot * scale, masked entries at -1e30, the running (m, l, acc)
-// updated per key tile, and the output acc / max(l, 1e-30), rounded to bf16
-// with __float2bfloat16_rn where q is bf16. No TF32; the f32 kernel uses
-// no approximate math.
+// scores dot * scale, masked entries weighing exactly 0, the running
+// (m, l, acc) updated per key tile, and the output acc / max(l, 1e-30),
+// rounded to bf16 with __float2bfloat16_rn where q is bf16. No TF32; the
+// f32 kernel uses no approximate math.
 //
 // Replaces: src/repro/kernels/flash_attn/flash_attn.py, flash_attention
 // (_flash_kernel), whose grid (BH, S/bq, T/bk) runs its kv axis in order and
@@ -13,8 +15,21 @@
 // grid runs in no order, so in both kernels here the kv loop moves inside
 // the block, which keeps (m, l, acc) in registers. Causal key tiles wholly
 // above the diagonal are skipped (exp(-1e30 - m) is exactly 0 in f32, so
-// this changes no bit), only the diagonal tile and a ragged last tile pay
-// for the mask, and the query tiles with the most key tiles start first.
+// this changes no bit), and so are the key tiles wholly below a window's
+// lower edge: a block starts at the tile that holds key q0 - W + 1 of its
+// first row q0, and a warp (warpgroup) skips a tile that none of its rows
+// sees. Only the diagonal tile, the window's edge tile and a ragged last
+// tile pay for the mask, and the query tiles with the most key tiles start
+// first. A masked score is -inf while the running max starts at -1e30, so a
+// masked key's p is exactly 0 even in a row that has seen no key yet (the
+// reference's where(ok, exp(s - m), 0)), and a row that sees no key at all
+// writes 0. For a row that has seen a key this is the Pallas kernel's
+// exp(-1e30 - m), exactly 0 as well. Both kernels take the window as a
+// template flag too, so that the window-free instantiation compiles to the
+// code without it (the window's terms in the bf16 key loop slowed the
+// causal call); the bf16 kernel's windowed instantiation runs the tiles
+// below the window's edge with the edge's tests and the rest with the
+// window-free step.
 // The head dim is a template parameter, 64, 128 or 256; a narrower head is
 // zero-padded in shared memory, which adds exact zeros to the scores. Both
 // kernels load with 16-byte granules, so the wrapper (flash_attn/ops.py)
@@ -98,7 +113,8 @@
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+constexpr float kNegInf = -1e30f;              // the running max's start
+constexpr float kMasked = -__builtin_inff();    // a masked score
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -205,11 +221,13 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const float* src,
   cp_async_arrive(bar);
 }
 
-template <int HD>
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(F32Tiles<HD>::kThreads, 1)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
-                  int s_len, int t_len, int d, int causal, float scale) {
+                  int s_len, int t_len, int d, int causal, int window_arg,
+                  float scale) {
+  const int window = kWindow ? window_arg : 0;  // 0 folds the window away
   using F = F32Tiles<HD>;
   constexpr int R = F::R, BK = F::BK, WR = F::WR, WC = F::WC, TN = F::TN,
                 TC = F::TC, LD = F::LD, LDP = F::LDP;
@@ -228,6 +246,10 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t koff = static_cast<size_t>(bh) * t_len * d;
   int n_tiles = (t_len + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (min(q0 + F::BQ, s_len) - 1) / BK + 1);
+  // The window hides every key below q0 - window + 1 from all of the
+  // block's rows: it starts at the tile that holds that key.
+  const int j0 = kWindow ? max(0, q0 - window + 1) / BK : 0;
+  const int n_ring = 2 * max(0, n_tiles - j0);  // K_j0, V_j0, K_j0+1, ...
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, F::kThreads);
@@ -239,21 +261,21 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();
 
-  // Tile n of the sequence K_0, V_0, K_1, V_1, ... goes to ring buffer
-  // n % kRing; every thread copies its share of it. Tiles 0 and 1 go now,
-  // and a thread that is done with tile n copies tile n + 2, into the
+  // Tile n of the sequence K_j0, V_j0, K_j0+1, V_j0+1, ... goes to ring
+  // buffer n % kRing; every thread copies its share of it. Tiles 0 and 1 go
+  // now, and a thread that is done with tile n copies tile n + 2, into the
   // buffer of tile n - 1, once every thread is done with that one.
   const uint32_t ring_addr = smem_addr(ring);
   const auto load_tile = [&](int n) {
     const int b = n % kRing;
     if (n >= kRing) mbar_wait(bar_empty + 8 * b, (n / kRing - 1) & 1);
     load_rows<HD, LD, BK, F::kThreads>(
-        ring_addr + 4 * b * F::kTile, ((n & 1) ? v : k) + koff, (n >> 1) * BK,
-        t_len, d, threadIdx.x, bar_full + 8 * b);
+        ring_addr + 4 * b * F::kTile, ((n & 1) ? v : k) + koff,
+        (j0 + (n >> 1)) * BK, t_len, d, threadIdx.x, bar_full + 8 * b);
   };
   load_rows<HD, LD, F::BQ, F::kThreads>(smem_addr(qs), q + qoff, q0, s_len, d,
                                      threadIdx.x, bar_q);
-  for (int n = 0; n < 2 && n < 2 * n_tiles; ++n) load_tile(n);
+  for (int n = 0; n < 2 && n < n_ring; ++n) load_tile(n);
 
   const int ty = lane / WC, tx = lane % WC;
   const int wrow0 = q0 + R * warp;              // the warp's first row
@@ -269,9 +291,12 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   mbar_wait(bar_q, 0);
 
-  for (int j = 0, b = 0, use = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    const bool live = wrow0 < s_len && (!causal || k0 <= wrow0 + R - 1);
+  for (int j = j0, b = 0, use = 0; j < n_tiles; ++j) {
+    const int k0 = j * BK, n = 2 * (j - j0);  // n: K_j's place in the ring
+    // The warp's rows see the tile if its first row sees the tile's last
+    // key (the window's lower edge) and its last row the tile's first key.
+    const bool live = wrow0 < s_len && (!causal || k0 <= wrow0 + R - 1) &&
+                      (!kWindow || k0 + BK - 1 > wrow0 - window);
     float sc[8][TN];
 
     // S = Q K_j^T for rows ty + WR*i, keys tx + WC*jn.
@@ -329,12 +354,13 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     mbar_arrive(bar_empty + 8 * b);
     if (++b == kRing) b = 0, ++use;
-    if (2 * j + 2 < 2 * n_tiles) load_tile(2 * j + 2);
+    if (n + 2 < n_ring) load_tile(n + 2);
 
     if (live) {
       // Online softmax; scores are scaled before the mask, so any sign of
       // scale holds.
-      const bool mask = (causal && k0 + BK - 1 > wrow0) || k0 + BK > t_len;
+      const bool mask = (causal && k0 + BK - 1 > wrow0) || k0 + BK > t_len ||
+                        (kWindow && k0 <= wrow0 + R - 1 - window);
       float corr[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -345,7 +371,9 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
           float x = sc[i][jn] * scale;
           if (mask) {
             const int kpos = k0 + tx + WC * jn;
-            if (kpos >= t_len || (causal && kpos > qpos)) x = kNegInf;
+            if (kpos >= t_len || (causal && kpos > qpos) ||
+                (kWindow && kpos <= qpos - window))
+              x = kMasked;
           }
           sc[i][jn] = x;
           mx = fmaxf(mx, x);
@@ -414,7 +442,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     mbar_arrive(bar_empty + 8 * b);
     if (++b == kRing) b = 0, ++use;
-    if (2 * j + 3 < 2 * n_tiles) load_tile(2 * j + 3);
+    if (n + 3 < n_ring) load_tile(n + 3);
   }
 
 #pragma unroll
@@ -440,10 +468,11 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int s_len, int t_len, int d, int causal,
+                   int bh, int s_len, int t_len, int d, int causal, int window,
                    float scale, cudaStream_t stream) {
   using F = F32Tiles<HD>;
-  const auto kernel = flash_attn_kernel<HD>;
+  const auto kernel = window > 0 ? flash_attn_kernel<HD, true>
+                                 : flash_attn_kernel<HD, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::smem_bytes);
   if (err != cudaSuccess) return err;
@@ -458,7 +487,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, F::kThreads, F::smem_bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), s_len, t_len, d,
-      causal, scale);
+      causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -574,17 +603,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
 // The m64nNk16 accumulator fragment: in warp w of a warpgroup, lane `lane`
 // holds d[4j + e] at row 16w + lane/4 + 8*(e/2), column 8j + 2*(lane%4) +
 // e%2. A thread thus owns two rows of the score tile (16 values each) and
 // the same two rows of the output.
-template <int HD>
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kTcThreads, HD <= 128 ? 2 : 1)
 flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        __nv_bfloat16* __restrict__ o, int s_len, int t_len,
-                       int d, int causal, float scale_log2) {
+                       int d, int causal, int window_arg, float scale_log2) {
+  const int window = kWindow ? window_arg : 0;  // 0 folds the window away
   constexpr int NC = HD / 64;                  // 64-column output chunks
   constexpr int kKV = tc_tile_bytes<HD>(kTcBlockK);
   extern __shared__ uint8_t tc_smem[];
@@ -602,18 +637,24 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   int n_tiles = (t_len + kTcBlockK - 1) / kTcBlockK;
   if (causal) n_tiles = min(n_tiles, (q0 + kTcBlockQ - 1) / kTcBlockK + 1);
+  // The window hides every key below q0 - window + 1 from all of the
+  // block's rows: it starts at the tile that holds that key. Tile j uses
+  // stage (j - j0) % kTcStages.
+  const int j0 = kWindow ? max(0, q0 - window + 1) / kTcBlockK : 0;
   const uint32_t bar0 = smem_addr(bars);
   if (threadIdx.x == 0) {
     for (int i = 0; i <= kTcStages; ++i) mbar_init(bar0 + 8 * i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x == 0 && n_tiles > 0) {  // no keys (t_len 0): no copies
+  // No key tile to visit (t_len 0, or every key below the window): no
+  // copies, and every row writes 0.
+  if (threadIdx.x == 0 && n_tiles > j0) {
     mbar_expect(bar0, tc_tile_bytes<HD>(kTcBlockQ));
     tma_tile<HD, kTcBlockQ>(qs, &tm_q, bar0, q0, bh);
     mbar_expect(bar0 + 8, 2 * kKV);
-    tma_tile<HD, kTcBlockK>(ring, &tm_k, bar0 + 8, 0, bh);
-    tma_tile<HD, kTcBlockK>(ring + kKV, &tm_v, bar0 + 8, 0, bh);
+    tma_tile<HD, kTcBlockK>(ring, &tm_k, bar0 + 8, j0 * kTcBlockK, bh);
+    tma_tile<HD, kTcBlockK>(ring + kKV, &tm_v, bar0 + 8, j0 * kTcBlockK, bh);
   }
 
   float acc[NC][32];
@@ -623,25 +664,33 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's part
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const uint32_t ks = ring + (j % kTcStages) * 2 * kKV, vs = ks + kKV;
+  // One step of the key loop, for tile j. The tiles that hold a key below
+  // the window's edge for some row of the block (an edge tile) test it; the
+  // tiles above the edge run the window-free kernel's step as it is, so the
+  // window costs the steady state nothing.
+  const auto step = [&](int j, auto edge) {
+    constexpr bool kEdge = decltype(edge)::value;
+    const int jj = j - j0;                    // steps done before this one
+    const uint32_t ks = ring + (jj % kTcStages) * 2 * kKV, vs = ks + kKV;
     // Tile j + 1 goes to the other stage, which the barrier at the end of
     // step j - 1 freed.
-    const uint32_t nks = ring + ((j + 1) % kTcStages) * 2 * kKV;
-    const uint32_t nbar = bar0 + 8 * (1 + (j + 1) % kTcStages);
+    const uint32_t nks = ring + ((jj + 1) % kTcStages) * 2 * kKV;
+    const uint32_t nbar = bar0 + 8 * (1 + (jj + 1) % kTcStages);
     if (threadIdx.x == 0 && j + 1 < n_tiles) {
       const int k1 = (j + 1) * kTcBlockK;
       mbar_expect(nbar, 2 * kKV);
       tma_tile<HD, kTcBlockK>(nks, &tm_k, nbar, k1, bh);
       tma_tile<HD, kTcBlockK>(nks + kKV, &tm_v, nbar, k1, bh);
     }
-    if (j == 0) mbar_wait(bar0, 0);
-    mbar_wait(bar0 + 8 * (1 + j % kTcStages), (j / kTcStages) & 1);
+    if (jj == 0) mbar_wait(bar0, 0);
+    mbar_wait(bar0 + 8 * (1 + jj % kTcStages), (jj / kTcStages) & 1);
 
     const int k0 = j * kTcBlockK;
-    // A warpgroup whose rows all lie above the tile's first key, or below
-    // the sequence's end, skips it (every weight would be exactly 0).
-    const bool live = wg_row0 < s_len && (!causal || k0 <= wg_row0 + 63);
+    // A warpgroup whose rows all lie above the tile's first key, all past
+    // the window of its last key, or below the sequence's end, skips it
+    // (every weight would be exactly 0).
+    const bool live = wg_row0 < s_len && (!causal || k0 <= wg_row0 + 63) &&
+                      (!kEdge || k0 + kTcBlockK - 1 > wg_row0 - window);
     if (live) {
       float s[32];
       wgmma_fence();
@@ -657,7 +706,8 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       reg_fence(s);
 
       const bool mask = (causal && k0 + kTcBlockK - 1 > wg_row0) ||
-                        k0 + kTcBlockK > t_len;
+                        k0 + kTcBlockK > t_len ||
+                        (kEdge && k0 <= wg_row0 + 63 - window);
       // Scores are scaled by scale * log2(e) before the mask, as the plain
       // version scales before it masks (so any sign of scale holds), and m
       // is kept in those units: p = 2^(s - m) is one subtraction and ex2.
@@ -668,7 +718,9 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (mask) {
           const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
           const int qpos = r0 + 8 * ((i / 2) % 2);
-          if (kpos >= t_len || (causal && kpos > qpos)) s[i] = kNegInf;
+          if (kpos >= t_len || (causal && kpos > qpos) ||
+              (kEdge && kpos <= qpos - window))
+            s[i] = kMasked;
         }
         mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
       }
@@ -710,7 +762,16 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
     }
     __syncthreads();                          // this stage may be refilled
+  };
+  int j = j0;
+  if constexpr (kWindow) {
+    // Tiles with k0 <= q0 + kTcBlockQ - 1 - window: a row of the block has
+    // its window's edge in or above them.
+    const int j_edge =
+        min(n_tiles, max(j0, (q0 + kTcBlockQ - 1 - window) / kTcBlockK + 1));
+    for (; j < j_edge; ++j) step(j, Flag<true>{});
   }
+  for (; j < n_tiles; ++j) step(j, Flag<false>{});
 
   float den[2];
 #pragma unroll
@@ -780,9 +841,10 @@ bool tensor_map(CUtensorMap* map, const void* base, int rows, int d, int bh,
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int bh, int s_len, int t_len, int d, int causal,
-                        float scale, cudaStream_t stream) {
+                        int window, float scale, cudaStream_t stream) {
   constexpr int smem = tc_smem_bytes<HD>();
-  const auto kernel = flash_attn_bf16_kernel<HD>;
+  const auto kernel = window > 0 ? flash_attn_bf16_kernel<HD, true>
+                                 : flash_attn_bf16_kernel<HD, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -801,34 +863,37 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(bh, (s_len + kTcBlockQ - 1) / kTcBlockQ);
   kernel<<<grid, kTcThreads, smem, stream>>>(
       tm[0], tm[1], tm[2], static_cast<__nv_bfloat16*>(o), s_len, t_len, d,
-      causal, scale * 1.4426950408889634f);
+      causal, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
                           int bh, int s_len, int t_len, int d, int causal,
-                          float scale, cudaStream_t stream) {
+                          int window, float scale, cudaStream_t stream) {
   if (d <= 64)
-    return launch_bf16<64>(q, k, v, o, bh, s_len, t_len, d, causal, scale,
-                           stream);
+    return launch_bf16<64>(q, k, v, o, bh, s_len, t_len, d, causal, window,
+                           scale, stream);
   if (d <= 128)
-    return launch_bf16<128>(q, k, v, o, bh, s_len, t_len, d, causal, scale,
-                            stream);
+    return launch_bf16<128>(q, k, v, o, bh, s_len, t_len, d, causal, window,
+                            scale, stream);
   if (d <= 256)
-    return launch_bf16<256>(q, k, v, o, bh, s_len, t_len, d, causal, scale,
-                            stream);
+    return launch_bf16<256>(q, k, v, o, bh, s_len, t_len, d, causal, window,
+                            scale, stream);
   return cudaErrorInvalidValue;
 }
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
                          int bh, int s_len, int t_len, int d, int causal,
-                         float scale, cudaStream_t stream) {
+                         int window, float scale, cudaStream_t stream) {
   if (d <= 64)
-    return launch<64>(q, k, v, o, bh, s_len, t_len, d, causal, scale, stream);
+    return launch<64>(q, k, v, o, bh, s_len, t_len, d, causal, window, scale,
+                      stream);
   if (d <= 128)
-    return launch<128>(q, k, v, o, bh, s_len, t_len, d, causal, scale, stream);
+    return launch<128>(q, k, v, o, bh, s_len, t_len, d, causal, window, scale,
+                       stream);
   if (d <= 256)
-    return launch<256>(q, k, v, o, bh, s_len, t_len, d, causal, scale, stream);
+    return launch<256>(q, k, v, o, bh, s_len, t_len, d, causal, window, scale,
+                       stream);
   return cudaErrorInvalidValue;
 }
 
@@ -836,14 +901,17 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
 
 // q (bh, s, d), k and v (bh, t, d), o (bh, s, d), all contiguous and
 // 16-byte aligned, f32 (d a multiple of 4) or (bf16 != 0) bf16 (d a multiple
-// of 8); 0 < d <= 256.
+// of 8); 0 < d <= 256. window > 0 (causal only) bounds what a query sees to
+// its last `window` keys; 0 is no window.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int bh, int s, int t, int d,
-                                 int causal, float scale, int bf16,
+                                 int causal, int window, float scale, int bf16,
                                  void* stream) {
+  if (window < 0 || (window > 0 && !causal))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? dispatch_bf16(q, k, v, o, bh, s, t, d, causal, scale, st)
-           : dispatch_f32(q, k, v, o, bh, s, t, d, causal, scale, st);
+      bf16 ? dispatch_bf16(q, k, v, o, bh, s, t, d, causal, window, scale, st)
+           : dispatch_f32(q, k, v, o, bh, s, t, d, causal, window, scale, st);
   return static_cast<int>(err);
 }

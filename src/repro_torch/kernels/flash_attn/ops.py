@@ -6,6 +6,13 @@ version in ``ref.py``, a CUDA tensor launches ``csrc/flash_attn.cu`` or
 raises. ``flash_mha`` is the JAX package's GQA wrapper: it repeats the KV
 heads, collapses batch and heads, pads S to the block grid and slices back.
 
+Both take an optional ``window`` on the causal mask, the reference's
+sliding window (``src/repro/models/attention.py:116-123``, and its chunked
+flash scan at :181-183): key t is visible to query s where
+s - window < t <= s. The JAX kernel has no window; the reference computes
+windowed attention with the same flash schedule at the XLA level, and K5
+runs it, skipping the key tiles below the window.
+
 ``block_q`` and ``block_k`` are the JAX kernel's tile sizes. They are kept
 for its divisibility checks, which the callers pad for; the CUDA kernel
 chooses its own tiles for the card and masks any ragged edge itself.
@@ -19,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from .ref import flash_attention_ref
+from .ref import check_window, flash_attention_ref
 
 MAX_HEAD_DIM = 256              # the widest tile csrc/flash_attn.cu has
 DTYPES = (torch.float32, torch.bfloat16)
@@ -37,10 +44,11 @@ def _round_up(a: int, b: int) -> int:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
-                    block_k: int = 128,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    block_k: int = 128, scale: Optional[float] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
     """q (BH, S, d), k/v (BH, T, d), f32 or bf16 -> (BH, S, d) in q's dtype.
-    S % block_q == 0 and T % block_k == 0 (``flash_mha`` pads)."""
+    S % block_q == 0 and T % block_k == 0 (``flash_mha`` pads). ``window``
+    (causal only): query s sees keys s - window < t <= s."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"q (BH, S, d), k and v (BH, T, d); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -56,13 +64,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"T={t} of block_k={block_k}")
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} is outside 1..{MAX_HEAD_DIM}")
+    check_window(window, causal)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if _build.on_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    return _launch(q, k, v, causal, scale)
+        return flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                   window=window)
+    return _launch(q, k, v, causal, scale, window)
 
 
-def _launch(q, k, v, causal, scale):
+def _launch(q, k, v, causal, scale, window):
     _build.require_contiguous(q=q, k=k, v=v)
     bh, s, d = q.shape
     if -(-s // _BLOCK_Q[q.dtype][d > 128]) > _MAX_GRID_Y:
@@ -80,10 +90,13 @@ def _launch(q, k, v, causal, scale):
         q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
                    for x in (q, k, v))
     out = torch.empty_like(q)
+    # A window of S keys or more hides nothing (query s < S sees t > s - S
+    # for every t >= 0); it goes to the kernel as S so that it fits an int.
+    win = 0 if window is None else min(window, s)
     lib = _build.library()
     code = lib.flash_attn_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
-        k.shape[1], q.shape[2], int(causal), scale,
+        k.shape[1], q.shape[2], int(causal), win, scale,
         int(q.dtype == torch.bfloat16),
         _build.stream_of(q))
     _build.check(code, "flash_attn")
@@ -92,9 +105,12 @@ def _launch(q, k, v, causal, scale):
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+              block_q: int = 128, block_k: int = 128,
+              scale: Optional[float] = None,
+              window: Optional[int] = None) -> torch.Tensor:
     """Causal GQA flash attention. q (B, S, H, hd); k/v (B, T, KV, hd) with
-    T == S (self-attention). Returns (B, S, H*hd)."""
+    T == S (self-attention). Returns (B, S, H*hd). ``scale`` defaults to
+    1/sqrt(hd); ``window``: query s sees keys s - window < t <= s."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q (B, S, H, hd), k and v (B, S, KV, hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -102,6 +118,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv = k.shape[2]
     if k.shape[1] != s or kv == 0 or h % kv:
         raise ValueError(f"k {tuple(k.shape)} does not fit q {tuple(q.shape)}")
+    check_window(window, True)
     n_rep = h // kv
     if n_rep > 1:
         k = k.repeat_interleave(n_rep, dim=2)
@@ -112,6 +129,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sp != s:
         qf, kf, vf = (F.pad(x, (0, 0, 0, sp - s)) for x in (qf, kf, vf))
     out = flash_attention(qf.contiguous(), kf.contiguous(), vf.contiguous(),
-                          causal=True, block_q=block_q, block_k=block_k)
+                          causal=True, block_q=block_q, block_k=block_k,
+                          scale=scale, window=window)
     out = out[:, :s]
     return out.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)

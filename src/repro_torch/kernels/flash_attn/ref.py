@@ -9,23 +9,46 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True,
-                        scale: Optional[float] = None) -> torch.Tensor:
-    """q (BH, S, d), k/v (BH, T, d) -> (BH, S, d) in q's dtype; f32 scores
-    and softmax, with key t visible to query s where t <= s when causal.
+def check_window(window: Optional[int], causal: bool) -> None:
+    """Raises ValueError for a window the mask cannot take."""
+    if window is None:
+        return
+    if not causal:
+        raise ValueError("a window applies to the causal mask only; got "
+                         f"window={window} with causal=False")
+    if window < 1:
+        raise ValueError(f"window must be at least 1; got {window}")
 
-    The (BH, S, T) score matrix is materialized, and updated in place to
-    hold one such matrix at a time.
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, scale: Optional[float] = None,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q (BH, S, d), k/v (BH, T, d) -> (BH, S, d) in q's dtype; f32 scores
+    and softmax, with key t visible to query s where t <= s when causal,
+    and also t > s - window with a window (the reference's sliding-window
+    mask, ``src/repro/models/attention.py:116-123``).
+
+    A hidden key weighs exactly 0, as in the reference's chunked scan
+    (``jnp.where(ok, exp(s - m), 0)``, :187), so a row that sees no key at
+    all (a window with S > T + window) gives 0. The (BH, S, T) score
+    matrix is materialized, and updated in place to hold one such matrix
+    at a time.
     """
+    check_window(window, causal)
     s_len, d = q.shape[1], q.shape[2]
     t_len = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     s = torch.einsum("bsd,btd->bst", q.float(), k.float()) * scale
+    hidden = None
     if causal:
         qpos = torch.arange(s_len, device=q.device)[:, None]
         kpos = torch.arange(t_len, device=q.device)[None, :]
-        s.masked_fill_(kpos > qpos, NEG_INF)
+        hidden = kpos > qpos
+        if window is not None:
+            hidden |= kpos <= qpos - window
+        s.masked_fill_(hidden, NEG_INF)
     w = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
-    w = w.div_(w.sum(dim=-1, keepdim=True))
+    if hidden is not None:
+        w.masked_fill_(hidden, 0.0)
+    w = w.div_(w.sum(dim=-1, keepdim=True).clamp_min_(1e-30))
     return torch.einsum("bst,btd->bsd", w, v.float()).to(q.dtype)

@@ -1,7 +1,8 @@
 """Model zoo: the float jet models (MLP, DeepSets) in the JAX package's
-layout, and the LM substrate's dense family (``blocks``, ``attention``,
-``transformer``) behind ``build``."""
-from . import attention, blocks, deepsets, mlp, transformer
+layout, and the LM substrate (``blocks``, ``attention``, ``moe``,
+``transformer``) behind ``build``: the dense, MoE, MLA and VLM-backbone
+families."""
+from . import attention, blocks, deepsets, mlp, moe, transformer
 from .deepsets import DeepSets
 from .mlp import MLP
 from .transformer import Transformer, init_params, params_from_numpy
@@ -16,30 +17,19 @@ def _refuse(cfg) -> None:
             "ROADMAP.md §1 M9c (encdec)")
     for kind in (*cfg.pattern, *cfg.pattern_tail):
         transformer.check_kind(kind)
-    if cfg.window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: windowed attention (window={cfg.window}) is not "
-            "ported yet: ROADMAP.md §1 M9b")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and the vision stub are not ported yet: "
-            "ROADMAP.md §1 M9b")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture of experts is not ported yet: ROADMAP.md "
-            "§1 M9b")
 
 
 def build(cfg, *, device="cuda", seed: int = 0) -> Transformer:
     """ArchConfig -> a ``Transformer`` with random weights from ``seed`` on
-    ``device`` (CUDA unless the caller asks for the CPU). Dense attention
-    models only; everything else raises NotImplementedError."""
+    ``device`` (CUDA unless the caller asks for the CPU). The attention,
+    MoE and MLA kinds, with or without a window or M-RoPE; the recurrent
+    kinds and the encoder-decoder raise NotImplementedError."""
     from repro_torch import resolve_device
     _refuse(cfg)
     dev = resolve_device(device)
     return Transformer(cfg, init_params(cfg, device=dev, seed=seed))
 
 
-__all__ = ["attention", "blocks", "deepsets", "mlp", "transformer",
+__all__ = ["attention", "blocks", "deepsets", "mlp", "moe", "transformer",
            "DeepSets", "MLP", "Transformer", "build", "init_params",
            "params_from_numpy"]

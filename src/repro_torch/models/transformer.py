@@ -1,6 +1,8 @@
-"""Decoder-only model assembled from an ArchConfig: the dense family of the
-JAX package's ``src/repro/models/transformer.py`` (qwen3, granite,
-qwen1.5), for serving — the full-sequence prefill and one-token decode.
+"""Decoder-only model assembled from an ArchConfig: the JAX package's
+``src/repro/models/transformer.py`` for the attention families — dense
+(qwen3, granite, qwen1.5), MoE with a sliding window (mixtral) or a shared
+expert (llama4), MLA (minicpm3) and the VLM backbone with M-RoPE
+(qwen2-vl) — for serving: the full-sequence prefill and one-token decode.
 
 The reference scans over groups of layers with stacked parameters; here
 ``Transformer.layers`` is a ``ModuleList`` with one entry a block, in the
@@ -9,8 +11,9 @@ then the tail). The matmul weights and the embedding are held in bf16 on
 the device (the reference casts its f32 weights to bf16 at every use, so
 the function is the same); norm scales stay f32.
 
-Only the ``attn`` block kind is ported. The others raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The ``attn``, ``attn_moe`` and ``mla`` block kinds are ported. The
+recurrent ones raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
@@ -23,20 +26,23 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from . import attention as A
 from . import blocks as B
+from . import moe as M
 
 Params = Dict[str, Any]
 
 #: Block kinds not ported yet -> what they need and the ROADMAP item.
 NOT_PORTED = {
-    "attn_moe": "mixture of experts (llama4, mixtral): ROADMAP.md §1 M9b",
-    "mla": "multi-head latent attention (minicpm3): ROADMAP.md §1 M9b",
     "rglru": "RG-LRU recurrence (recurrentgemma): ROADMAP.md §1 M9c",
     "mlstm": "xLSTM matrix memory (xlstm): ROADMAP.md §1 M9c",
     "slstm": "xLSTM scalar memory (xlstm): ROADMAP.md §1 M9c",
 }
-#: Param dicts that hold norm scales/biases (kept f32); every other leaf is a
-#: matmul weight, bias or the embedding, held in WEIGHT_DTYPE.
-NORM_KEYS = ("ln1", "ln2", "qnorm", "knorm", "final_norm")
+KINDS = ("attn", "attn_moe", "mla")
+#: Param keys kept f32, as dicts (the norms' scales and biases) or leaves
+#: (the MoE router: a bf16 router would change which experts top-k picks);
+#: every other leaf is a matmul weight, bias or the embedding, held in
+#: WEIGHT_DTYPE.
+F32_KEYS = ("ln1", "ln2", "qnorm", "knorm", "q_norm", "kv_norm", "final_norm",
+            "router")
 WEIGHT_DTYPE = torch.bfloat16
 
 
@@ -45,7 +51,7 @@ def check_kind(kind: str) -> None:
     if kind in NOT_PORTED:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet: {NOT_PORTED[kind]}")
-    if kind != "attn":
+    if kind not in KINDS:
         raise ValueError(kind)
 
 
@@ -60,6 +66,21 @@ def _attn_cfg(cfg: ArchConfig) -> A.AttnConfig:
         window=cfg.window, rope_theta=cfg.rope_theta,
         mrope_sections=cfg.mrope_sections,
         cache_dtype=cfg.kv_cache_dtype)
+
+
+def _mla_cfg(cfg: ArchConfig) -> A.MLAConfig:
+    m = cfg.mla
+    return A.MLAConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                       q_lora_rank=m.q_lora_rank, kv_lora_rank=m.kv_lora_rank,
+                       qk_nope_dim=m.qk_nope_dim, qk_rope_dim=m.qk_rope_dim,
+                       v_head_dim=m.v_head_dim, rope_theta=cfg.rope_theta)
+
+
+def _moe_cfg(cfg: ArchConfig) -> M.MoEConfig:
+    return M.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                       n_experts=cfg.n_experts, top_k=cfg.top_k,
+                       capacity_factor=cfg.capacity_factor,
+                       shared_expert=cfg.shared_expert)
 
 
 def _norm_init(cfg: ArchConfig, device=None):
@@ -87,11 +108,25 @@ def _mlp(cfg: ArchConfig, p, x):
 
 def block_init(gen, kind: str, cfg: ArchConfig, device=None) -> Params:
     check_kind(kind)
-    return {"ln1": _norm_init(cfg, device),
-            "attn": A.attn_init(gen, _attn_cfg(cfg), dtype=WEIGHT_DTYPE,
-                                device=device),
-            "ln2": _norm_init(cfg, device),
-            "mlp": _mlp_init(gen, cfg, device)}
+    kw = dict(dtype=WEIGHT_DTYPE, device=device)
+    if kind == "mla":
+        mixer = {"mla": A.mla_init(gen, _mla_cfg(cfg), **kw)}
+    else:
+        mixer = {"attn": A.attn_init(gen, _attn_cfg(cfg), **kw)}
+    if kind == "attn_moe":
+        ffn = {"moe": M.moe_init(gen, _moe_cfg(cfg), **kw)}
+    else:
+        ffn = {"mlp": _mlp_init(gen, cfg, device)}
+    return {"ln1": _norm_init(cfg, device), **mixer,
+            "ln2": _norm_init(cfg, device), **ffn}
+
+
+def _ffn(kind: str, p: Params, h: torch.Tensor, cfg: ArchConfig):
+    """The block's second half on the normed h: (out, aux)."""
+    if kind == "attn_moe":
+        return M.moe_forward(p["moe"], h, _moe_cfg(cfg))
+    return _mlp(cfg, p["mlp"], h), torch.zeros((), dtype=torch.float32,
+                                               device=h.device)
 
 
 def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -99,16 +134,23 @@ def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence residual block. Returns (x, aux_loss)."""
     check_kind(kind)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = x + A.attention(p["attn"], _norm(cfg, p["ln1"], x), _attn_cfg(cfg),
-                        positions)
-    x = x + _mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], x))
-    return x, aux
+    h = _norm(cfg, p["ln1"], x)
+    if kind == "mla":
+        # MLA's RoPE takes one position stream: M-RoPE's first (temporal)
+        if positions is not None and positions.dim() == 3:
+            positions = positions[..., 0]
+        x = x + A.mla_attention(p["mla"], h, _mla_cfg(cfg), positions)
+    else:
+        x = x + A.attention(p["attn"], h, _attn_cfg(cfg), positions)
+    out, aux = _ffn(kind, p, _norm(cfg, p["ln2"], x), cfg)
+    return x + out, aux
 
 
 def block_cache_init(kind: str, cfg: ArchConfig, batch: int, max_len: int,
                      device=None):
     check_kind(kind)
+    if kind == "mla":
+        return A.mla_init_cache(_mla_cfg(cfg), batch, max_len, device=device)
     acfg = _attn_cfg(cfg)
     # sliding-window caches are ring buffers of size window
     n = min(max_len, acfg.window) if acfg.window else max_len
@@ -118,26 +160,41 @@ def block_cache_init(kind: str, cfg: ArchConfig, batch: int, max_len: int,
 def block_decode(kind: str, p: Params, x: torch.Tensor, cache,
                  cfg: ArchConfig):
     check_kind(kind)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h, cache = A.decode_step(p["attn"], _norm(cfg, p["ln1"], x), cache,
-                             _attn_cfg(cfg))
+    h = _norm(cfg, p["ln1"], x)
+    if kind == "mla":
+        h, cache = A.mla_decode_step(p["mla"], h, cache, _mla_cfg(cfg))
+    else:
+        h, cache = A.decode_step(p["attn"], h, cache, _attn_cfg(cfg))
     x = x + h
-    x = x + _mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], x))
-    return x, cache, aux
+    out, aux = _ffn(kind, p, _norm(cfg, p["ln2"], x), cfg)
+    return x + out, cache, aux
 
 
 # ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
 
-def _frozen(tree: Params) -> nn.Module:
-    """A nested dict of tensors as nested ModuleDict/ParameterDict, the
-    tensors shared (not copied) and frozen: the port serves, it does not
-    train yet."""
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                                 for k, v in tree.items()})
-    return nn.ModuleDict({k: _frozen(v) for k, v in tree.items()})
+class _Tree(nn.Module):
+    """A nested dict of tensors as a module, read with ``p[key]`` and
+    ``key in p`` as the blocks read a dict; a dict may hold both tensors and
+    sub-dicts (llama4's ``moe``: the stacked experts beside the ``shared``
+    SwiGLU). The tensors are shared (not copied) and frozen: the port serves,
+    it does not train yet."""
+
+    def __init__(self, tree: Params):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+            else:
+                self.add_module(k, _Tree(v))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
 
 
 def layer_kinds(cfg: ArchConfig) -> List[str]:
@@ -147,9 +204,12 @@ def layer_kinds(cfg: ArchConfig) -> List[str]:
 
 def init_params(cfg: ArchConfig, *, device, seed: int = 0) -> Params:
     """Random weights on ``device`` as the reference's ``_init`` scales them
-    (1/sqrt(d_in); 1.0 for the embedding), from a ``torch.Generator`` seeded
-    with ``seed``; drawn f32 one tensor at a time and cast to WEIGHT_DTYPE.
-    The numbers differ from the JAX package's for the same seed."""
+    (1/sqrt of the first axis: d_in for a matrix, the expert count for a
+    stacked expert weight; 1.0 for the embedding), from a
+    ``torch.Generator`` seeded with ``seed``; drawn f32 one tensor (one
+    expert) at a time and cast to WEIGHT_DTYPE, the norms and the MoE router
+    kept f32. The numbers differ from the JAX package's for the same
+    seed."""
     gen = torch.Generator(device=device).manual_seed(seed)
     return {"embedding": B.embedding_init(gen, cfg.vocab, cfg.d_model,
                                           dtype=WEIGHT_DTYPE, device=device),
@@ -175,9 +235,9 @@ class Transformer(nn.Module):
                              f"{len(self.kinds)} blocks")
         for k in self.kinds:
             check_kind(k)
-        self.embedding = _frozen(params["embedding"])
-        self.final_norm = _frozen(params["final_norm"])
-        self.layers = nn.ModuleList(_frozen(p) for p in params["layers"])
+        self.embedding = _Tree(params["embedding"])
+        self.final_norm = _Tree(params["final_norm"])
+        self.layers = nn.ModuleList(_Tree(p) for p in params["layers"])
 
     @property
     def device(self) -> torch.device:
@@ -229,16 +289,16 @@ def params_from_numpy(cfg: ArchConfig, tree: Params, *,
                       device="cuda") -> Transformer:
     """A ``Transformer`` on ``device`` with the weights of the reference's
     param pytree, given as numpy arrays: ``groups`` is unstacked along axis
-    0 into the layers, then ``tail``. Norm leaves become f32, every other
-    leaf WEIGHT_DTYPE."""
+    0 into the layers, then ``tail``. The leaves under F32_KEYS (norms, the
+    MoE router) become f32, every other leaf WEIGHT_DTYPE."""
     from repro_torch import resolve_device
     dev = resolve_device(device)
 
-    def load(sub, norm=False):
+    def load(sub, f32=False):
         if isinstance(sub, dict):
-            return {k: load(v, norm or k in NORM_KEYS) for k, v in sub.items()}
+            return {k: load(v, f32 or k in F32_KEYS) for k, v in sub.items()}
         return torch.from_numpy(np.array(sub, dtype=np.float32)).to(
-            dev, torch.float32 if norm else WEIGHT_DTYPE)
+            dev, torch.float32 if f32 else WEIGHT_DTYPE)
 
     def take(sub, g):
         if isinstance(sub, dict):
@@ -250,5 +310,5 @@ def params_from_numpy(cfg: ArchConfig, tree: Params, *,
     layers += [load(p) for p in tree.get("tail", [])]
     return Transformer(cfg, {
         "embedding": load(tree["embedding"]),
-        "final_norm": load(tree["final_norm"], norm=True),
+        "final_norm": load(tree["final_norm"], f32=True),
         "layers": layers})

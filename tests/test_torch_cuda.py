@@ -428,6 +428,76 @@ def test_flash_attention_explicit_scale_equals_plain(dev, dtype, causal, scale):
                                rtol=FLASH_TOL[dtype])
 
 
+# (BH, S, T, d, window): windows of one key, of one key tile less one and
+# exactly one (64 keys, the bf16 kernel's tile; the f32 kernel's at d <= 128),
+# off the tiles, and as wide as S; S and T on and off the tiles, T != S.
+WINDOWED_FLASH = [
+    (2, 256, 256, 64, 1), (2, 256, 256, 128, 63), (2, 256, 256, 128, 64),
+    (2, 300, 300, 128, 100), (2, 200, 200, 64, 200), (1, 200, 200, 64, 500),
+    (3, 384, 384, 96, 100), (2, 130, 300, 128, 64), (2, 300, 130, 128, 63),
+    (1, 257, 257, 256, 100), (2, 1024, 1024, 128, 300), (1, 77, 77, 5, 8),
+    (160, 512, 512, 128, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bh,s,t,d,window", WINDOWED_FLASH)
+def test_windowed_flash_attention_equals_plain(dev, dtype, bh, s, t, d,
+                                               window):
+    """The window skips whole key tiles below it and masks the edge tile:
+    the output equals the plain version's masked softmax, and differs from
+    the window-free call where the window binds."""
+    rng = np.random.default_rng(bh * s + d + window)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (bh, n, d)).astype(np.float32))
+               .to(dev, dtype) for n in (s, t, t))
+    launches.reset()
+    got = tfa.flash_attention(q, k, v, causal=True, block_q=s, block_k=t,
+                              window=window)
+    assert launches.snapshot() == {"flash_attn": 1}
+    want = tfa.flash_attention_ref(q, k, v, causal=True, window=window)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_TOL[dtype],
+                               rtol=FLASH_TOL[dtype])
+    if window < min(s, t):
+        free = tfa.flash_attention_ref(q, k, v, causal=True)
+        assert float((free.float() - want.float()).abs().max()) > 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_windowed_flash_attention_rows_that_see_no_key_are_zero(dev, dtype):
+    """S = 300 queries on T = 64 keys with a window of 50: rows 113.. see
+    no key; whole query tiles visit no key tile. They write 0, as the plain
+    version and the reference's chunked scan give."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(0, 1, (2, 300, 64)).astype(
+        np.float32)).to(dev, dtype)
+    k, v = (torch.from_numpy(rng.normal(0, 1, (2, 64, 64)).astype(
+        np.float32)).to(dev, dtype) for _ in range(2))
+    got = tfa.flash_attention(q, k, v, causal=True, block_q=300, block_k=64,
+                              window=50)
+    want = tfa.flash_attention_ref(q, k, v, causal=True, window=50)
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_TOL[dtype],
+                               rtol=FLASH_TOL[dtype])
+    assert not bool(got[:, 113:].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_windowed_flash_mha_gqa_equals_plain(dev, dtype):
+    """mixtral's GQA ratio (4 query heads a KV head) and hd 128 with a
+    window of 100, S = 600 off the tiles, through flash_mha."""
+    rng = np.random.default_rng(12)
+    q = torch.from_numpy(rng.normal(0, 1, (2, 600, 8, 128)).astype(
+        np.float32)).to(dev, dtype)
+    k, v = (torch.from_numpy(rng.normal(0, 1, (2, 600, 2, 128)).astype(
+        np.float32)).to(dev, dtype) for _ in range(2))
+    got = tfa.flash_mha(q, k, v, window=100)
+    want = tfa.flash_mha(q.cpu(), k.cpu(), v.cpu(), window=100)
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+
+
 @pytest.mark.parametrize("kv", [1, 2, 4])
 def test_flash_mha_bf16_equals_plain(dev, kv):
     rng = np.random.default_rng(10 + kv)
@@ -593,7 +663,19 @@ def test_fleet_replicas_launch_on_distinct_streams(dev, monkeypatch, mode):
 # largest (2^-8 = 0.4%); 0.02 is five, as tests/test_torch_lm.py holds the
 # port to the JAX package.
 LOGIT_TOL = 0.02
-LM_ARCHS = ["qwen3-14b", "granite-8b", "qwen1.5-32b"]
+# The MoE archs: the reference's own compiled and op-by-op forwards differ by
+# up to 0.022 of the largest logit at llama4 reduced (its experts' outputs are
+# large, so an ulp of the router's input moves the logits more); see
+# tests/test_torch_lm.py. A router near-tie may also flip an expert pick
+# between two runs that round apart (K5 on the card, its plain version on the
+# CPU): a flip moves that token, and through attention and capacity the later
+# ones, by order 1, so the logits are compared before the first position
+# whose routing differs, and a pick that differs where every earlier layer
+# routed the same must be a near-tie (the picked and unpicked probabilities
+# within NEAR_TIE, relative).
+MOE_LOGIT_TOL, NEAR_TIE = 0.04, 2e-2
+LM_ARCHS = ["qwen3-14b", "granite-8b", "qwen1.5-32b", "mixtral-8x7b",
+            "llama4-maverick-400b-a17b", "minicpm3-4b", "qwen2-vl-72b"]
 
 
 def _lm_cfg(name):
@@ -626,6 +708,7 @@ def test_transformer_on_cuda_equals_cpu(dev, bf16_full_reduction, name):
     """The same weights on the card and on the CPU: K5 launches once a
     layer a forward on the card, the plain version runs on the CPU."""
     from repro_torch.models import Transformer, init_params
+    from repro_torch.models import moe as M
     cfg = _lm_cfg(name)
     params = init_params(cfg, device=torch.device("cpu"), seed=1)
     cpu = Transformer(cfg, params)
@@ -635,14 +718,67 @@ def test_transformer_on_cuda_equals_cpu(dev, bf16_full_reduction, name):
         "layers": [_to(p, dev) for p in params["layers"]]})
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (2, 200)))
+    logs = {"gpu": [], "cpu": []}
     launches.reset()
-    got, _ = gpu(toks.to(dev))
+    with M.routing_log(logs["gpu"]):
+        got, _ = gpu(toks.to(dev))
     torch.cuda.synchronize()
     assert launches.snapshot().get("flash_attn", 0) == cfg.n_layers
-    want, _ = cpu(toks)
+    with M.routing_log(logs["cpu"]):
+        want, _ = cpu(toks)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert bool(torch.isfinite(got).all())
-    assert _rel(got, want) <= LOGIT_TOL
+    if not cfg.n_experts:
+        assert _rel(got, want) <= LOGIT_TOL
+        return
+    assert len(logs["gpu"]) == len(logs["cpu"]) == sum(
+        k == "attn_moe" for k in cpu.kinds)
+    split = _routing_split(logs["cpu"], logs["gpu"], cfg.top_k)
+    for g, t in enumerate(split):
+        assert t > 0
+        assert _rel(got[g, :t], want[g, :t]) <= MOE_LOGIT_TOL
+
+
+def _near_tie_gap(probs, k: int):
+    """How far apart, relative, each token's k-th and (k+1)-th largest
+    router probabilities lie: the margin of its set of chosen experts."""
+    top = probs.float().topk(k + 1, dim=-1).values
+    return ((top[..., k - 1] - top[..., k]) / top[..., k - 1]).cpu()
+
+
+def _experts(ids, keep=None):
+    """A token's chosen (with ``keep``, kept) experts as a sorted set, -1
+    for a dropped choice: the order of the top-k, which two near-equal
+    gates may swap, changes no output where nothing is dropped."""
+    if keep is not None:
+        ids = ids.masked_fill(~keep, -1)
+    return ids.sort(dim=-1).values.cpu()
+
+
+def _routing_split(ref_log, other_log, k):
+    """Per group, the first position where any layer's expert picks or kept
+    choices differ between two runs of the same model (layer by layer, in
+    order). Before that position every earlier layer routed alike, so a
+    pick that differs there can only be a near-tie in ``ref_log``; fails on
+    any other."""
+    s_len = ref_log[0].expert_ids.shape[1]
+    split = [s_len] * ref_log[0].expert_ids.shape[0]
+    for layer, (a, b) in enumerate(zip(ref_log, other_log)):
+        picks = (_experts(a.expert_ids) != _experts(b.expert_ids)).any(-1)
+        differ = picks | (_experts(a.expert_ids, a.keep)
+                          != _experts(b.expert_ids, b.keep)).any(-1)
+        gap = _near_tie_gap(a.probs, k)
+        first = list(split)
+        for g in range(len(split)):
+            for p in picks[g].nonzero()[:, 0].tolist():
+                assert p >= split[g] or gap[g, p] < NEAR_TIE, (
+                    f"layer {layer}, group {g}, position {p}: other experts "
+                    f"with their probabilities {float(gap[g, p]):.3e} apart")
+            where = differ[g].nonzero()
+            if len(where):
+                first[g] = min(first[g], int(where[0]))
+        split = first
+    return split
 
 
 def _to(tree, dev):
@@ -651,7 +787,8 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-@pytest.mark.parametrize("name", ["granite-8b", "qwen3-14b-hd128"])
+@pytest.mark.parametrize("name", ["granite-8b", "qwen3-14b-hd128",
+                                  "minicpm3-4b"])
 def test_decode_matches_forward_on_cuda(dev, bf16_full_reduction, name):
     """Decode from an empty cache reproduces the forward's logits on the
     card, as tests/test_arch_smoke.py holds the reference's."""
@@ -673,15 +810,30 @@ def test_decode_matches_forward_on_cuda(dev, bf16_full_reduction, name):
     assert bool((dec.argmax(-1) == full.argmax(-1)).all())
 
 
-def test_window_attention_on_cuda_raises(dev):
+def test_non_causal_attention_on_cuda_raises(dev):
     from repro_torch.models import attention as A
-    cfg = A.AttnConfig(d_model=64, n_heads=4, n_kv=2, head_dim=16, window=8)
+    cfg = A.AttnConfig(d_model=64, n_heads=4, n_kv=2, head_dim=16,
+                       causal=False)
     g = torch.Generator(device=dev).manual_seed(0)
     p = A.attn_init(g, cfg, dtype=torch.bfloat16, device=dev)
     x = torch.zeros((1, 16, 64), dtype=torch.bfloat16, device=dev)
     launches.reset()
-    with pytest.raises(NotImplementedError, match="M9b"):
-        A.attention(p, x, cfg)
     with pytest.raises(NotImplementedError, match="M9c"):
-        A.attention(p, x, dataclasses.replace(cfg, window=None, causal=False))
+        A.attention(p, x, cfg)
     assert launches.snapshot().get("flash_attn", 0) == 0
+
+
+def test_windowed_attention_on_cuda_launches_k5_with_the_window(dev):
+    """mixtral's attention (a window) on the card: one K5 launch, equal to
+    the same layer on the CPU (K5's plain version) within LOGIT_TOL."""
+    from repro_torch.models import attention as A
+    cfg = A.AttnConfig(d_model=256, n_heads=4, n_kv=1, head_dim=64,
+                       window=100)
+    g = torch.Generator().manual_seed(0)
+    p = A.attn_init(g, cfg, dtype=torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1, (2, 333, 256)).astype(np.float32)).to(torch.bfloat16)
+    launches.reset()
+    got = A.attention(_to(p, dev), x.to(dev), cfg)
+    assert launches.snapshot() == {"flash_attn": 1}
+    assert _rel(got, A.attention(p, x, cfg)) <= LOGIT_TOL

@@ -157,3 +157,90 @@ def test_flash_attention_refuses_mixed_or_integer_dtypes():
         tfa.flash_attention(q, q.to(torch.bfloat16), q, block_q=32, block_k=32)
     with pytest.raises(ValueError, match="dtype"):
         tfa.flash_attention(*(q.to(torch.int8),) * 3, block_q=32, block_k=32)
+
+
+# -- the window (sliding-window attention, on the causal mask) ---------------
+
+def _heads(x):
+    """(BH, S, d) -> (1, S, BH, d): the reference's attention layout, one
+    KV head a query head."""
+    return x.transpose(0, 1)[None]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,window", [(40, 1), (40, 8), (96, 63), (96, 64),
+                                      (100, 100), (70, 500)])
+def test_windowed_flash_attention_matches_jax_mask(dtype, s, window):
+    """The window against the reference's own mask,
+    ``_sdpa(q, k, v, _causal_mask(S, S, window))``
+    (src/repro/models/attention.py:116-123), windows 1 to beyond S. The
+    reference's ``_sdpa`` rounds the softmax weights to v's dtype before
+    the second product; in f32 that is no rounding, in bf16 one ulp (the
+    tolerance of the JAX kernel tests, as above)."""
+    from repro.models import attention as jA
+    rng = np.random.default_rng(s + window)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (3, s, 16), dtype)
+                                    for _ in range(3))
+    want = jA._sdpa(*(jnp.moveaxis(a, 0, 1)[None] for a in (jq, jk, jv)),
+                    jA._causal_mask(s, s, window), 1)
+    want = np.asarray(want.astype(jnp.float32)).reshape(s, 3, 16)
+    got = tfa.flash_attention(tq, tk, tv, causal=True, window=window,
+                              block_q=s, block_k=s)
+    assert got.dtype == tq.dtype
+    _close(_heads(got)[0], want, TOL[dtype])
+    ref = tfa.flash_attention_ref(tq, tk, tv, causal=True, window=window)
+    assert torch.equal(got, ref)
+
+
+def test_windowed_flash_mha_matches_jax_attention_mask():
+    """GQA (4 query heads on 2 KV heads) with a window, S off the block
+    grid: flash_mha against the reference's ``_sdpa`` with its mask."""
+    from repro.models import attention as jA
+    rng = np.random.default_rng(9)
+    jq, tq = _pair(rng, (2, 70, 4, 16), "float32")
+    jk, tk = _pair(rng, (2, 70, 2, 16), "float32")
+    jv, tv = _pair(rng, (2, 70, 2, 16), "float32")
+    want = jA._sdpa(jq, jk, jv, jA._causal_mask(70, 70, 20), 2)
+    got = tfa.flash_mha(tq, tk, tv, block_q=32, block_k=32, window=20)
+    assert got.shape == (2, 70, 64)
+    _close(got, want, 3e-5)
+    wide = tfa.flash_mha(tq, tk, tv, block_q=32, block_k=32, window=70)
+    assert torch.equal(wide, tfa.flash_mha(tq, tk, tv, block_q=32,
+                                           block_k=32))
+
+
+def test_a_row_that_sees_no_key_gives_zero_as_the_chunked_scan():
+    """S > T + window: query rows 4.. see no key. The reference's chunked
+    flash scan weighs a hidden key exactly 0 (``jnp.where(ok, ..., 0)``)
+    and so gives 0 there; the plain version does the same."""
+    from repro.models import attention as jA
+    rng = np.random.default_rng(10)
+    jq, tq = _pair(rng, (1, 8, 1, 16), "float32")
+    jk, tk = _pair(rng, (1, 2, 1, 16), "float32")
+    jv, tv = _pair(rng, (1, 2, 1, 16), "float32")
+    want = jA._sdpa_q_chunked(jq, jk, jv, 3, 1, 8)
+    got = tfa.flash_attention_ref(tq[0].transpose(0, 1), tk[0].transpose(0, 1),
+                                  tv[0].transpose(0, 1), window=3)
+    assert np.asarray(want)[0, :4].all(axis=-1).all()
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want)[0],
+                               rtol=2e-5, atol=2e-5)
+    assert not got[0, 4:].any()
+
+
+@pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_ref",
+                                "flash_mha"])
+def test_window_refused_without_the_causal_mask_or_below_one(fn):
+    q = torch.zeros((1, 32, 16))
+    call = {"flash_attention": lambda **kw: tfa.flash_attention(
+                q, q, q, block_q=32, block_k=32, **kw),
+            "flash_attention_ref": lambda **kw: tfa.flash_attention_ref(
+                q, q, q, **kw),
+            "flash_mha": lambda **kw: tfa.flash_mha(
+                q[None], q[None], q[None], block_q=32, block_k=32,
+                **{k: v for k, v in kw.items() if k != "causal"})}[fn]
+    for w in (0, -3):
+        with pytest.raises(ValueError, match="at least 1"):
+            call(window=w)
+    if fn != "flash_mha":
+        with pytest.raises(ValueError, match="causal"):
+            call(window=4, causal=False)

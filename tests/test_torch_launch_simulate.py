@@ -10,8 +10,10 @@ import pytest
 
 from repro.launch import calibrate as ref_calibrate
 from repro.launch import simulate as ref_simulate
+from repro.sim import fastpath as ref_fastpath
 from repro_torch.launch import calibrate as port_calibrate
 from repro_torch.launch import simulate as simulate_cli
+from repro_torch.sim import fastpath as port_fastpath
 
 DEPRECATED_STANDALONE = ("[sim] note: --jitter is deprecated; prefer "
                          "--arrivals (e.g. poisson:<eps>)")
@@ -100,9 +102,18 @@ class TestProfileFlags:
 def _twin_runs(monkeypatch, capsys, tmp_path, argv, ref, port, prog):
     """Runs the reference's and the port's ``main()`` on ``argv``, each in a
     directory of its own so that the relative output paths (and so stdout)
-    agree; returns (stdout, directory) for each."""
+    agree; returns (stdout, directory) for each.
+
+    The fast path's replay and fallback counters (``sim.fastpath.COUNTERS``,
+    exported into the metrics) count for the whole process, so a fast-path
+    test that ran earlier in the same worker would raise one package's
+    count and not the other's. Both are set to a fresh dict before each
+    run, so that each run counts only its own replays."""
     runs = []
     for name, cli in (("ref", ref), ("port", port)):
+        for fp in (ref_fastpath, port_fastpath):
+            monkeypatch.setattr(fp, "COUNTERS", {"replays": {},
+                                                 "fallbacks": {}})
         d = tmp_path / name
         d.mkdir()
         monkeypatch.chdir(d)
@@ -154,6 +165,30 @@ def test_simulate_main_equals_the_reference(monkeypatch, capsys, tmp_path,
     assert written == [f for f in files if (d_port / f).exists()]
     assert "m.json" in written
     _same_files(d_ref, d_port, written)
+
+
+def test_twin_runs_ignore_an_earlier_reference_replay(monkeypatch, capsys,
+                                                      tmp_path):
+    """A reference fast-path replay earlier in the same process (as another
+    test file may run first in the same worker) raises the reference's
+    process-wide replay count; the replicas-fast twin run that follows is
+    still equal, gauges and all."""
+    argv = ["--model", "deepsets-32", "--replicas", "3", "--events", "2",
+            "--engine", "fast", "--trace", "t.json", "--metrics-out",
+            "m.json"]
+    before = tmp_path / "before"
+    before.mkdir()
+    monkeypatch.chdir(before)
+    _run(monkeypatch, capsys, argv, ref_simulate)
+    assert sum(ref_fastpath.COUNTERS["replays"].values()) > 0
+    twin = tmp_path / "twin"
+    twin.mkdir()
+    (out_ref, d_ref), (out_port, d_port) = _twin_runs(
+        monkeypatch, capsys, twin, argv, ref_simulate, simulate_cli,
+        "simulate")
+    assert out_port == out_ref
+    _same_files(d_ref, d_port, ["m.json"])
+    assert "sim.fastpath" in (d_port / "m.json").read_text()
 
 
 def test_simulate_gate_failure_equals_the_reference(monkeypatch, tmp_path):

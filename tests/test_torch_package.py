@@ -49,8 +49,9 @@ def imports():
 
 
 def test_every_module_is_listed():
-    assert len(MODULES) >= 69
-    for m in ("repro_torch.models.transformer", "repro_torch.configs.archs",
+    assert len(MODULES) >= 70
+    for m in ("repro_torch.models.transformer", "repro_torch.models.moe",
+              "repro_torch.configs.archs",
               "repro_torch.launch.simulate", "repro_torch.launch.calibrate"):
         assert m in MODULES
 
