@@ -51,8 +51,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      and SDPA's own max |err| in f32 against the plain version; K5 bf16 at
      mixtral's layer shapes (B*H 32, S 8192, hd 128) with its window of
      4096 and without, each beside its bound and SDPA (the window as a
-     boolean band mask), and at minicpm3's MLA shapes (B*H 40, S 2048, the
-     96-wide q/k and the zero-padded v);
+     boolean band mask), at minicpm3's MLA shapes (B*H 40, S 2048, the
+     96-wide q/k and the zero-padded v), at recurrentgemma's local
+     attention (B*H 10, S 8192, d 256, window 2048 and without) and at
+     whisper's (B*H 128, d 64: the encoder, S = T = 1500 without the mask;
+     the cross attention, 448 queries over 1500 keys without it; the
+     decoder's causal self-attention at S = 448);
   7. the H100 latency model (``repro_torch.core.h100_model``) against the
      card: its measured constants calibrated anew (``h100_model.calibrate``:
      the launch floor, K2 at 2/5/9 layers and K3 for one event at phi
@@ -91,11 +95,27 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      of 80 layers (a prefill of 2048 from the vision stub's embeds with
      three-stream positions); for mixtral and minicpm3 the prefill and
      decode a token beside their bounds, K5's and the experts' shares and
-     the idle share.
+     the idle share;
+  10. the recurrent and encoder-decoder paths through the same ``build``,
+     each whole model at its published width with random bf16 weights
+     from a seed, freed before the next, each prefill with the launch
+     counts set to 0 just before and read just after: recurrentgemma-2b
+     (26 layers; a prefill of 8192 tokens, so its window of 2048 binds; K5
+     exactly 8 times, at d 256 with the one KV head repeated; block 2's
+     windowed attention through K5 against its plain version; 16 decode
+     steps into the RG-LRU states and ring caches of 2048), xlstm-350m (24
+     layers; a prefill of 2048; K5 never; 16 decode steps; the mLSTM and
+     sLSTM blocks' shares of the prefill) and whisper-base (6 + 6 layers;
+     B = 16 stub frame tensors of 1500 frames and a prompt of 448; K5
+     exactly 18 times, the encoder's and the cross attention without the
+     mask; encoder layer 0's attention and decoder layer 0's cross
+     attention against their plain versions; 16 decode steps); each decode
+     within LM_DECODE_TOL of the forward's logits, and each prefill and
+     decode a token beside its bound, with K5's share and the idle share.
 It then prints the ``kernels`` JSON line (K5 bf16's numbers are phase 8's:
 its launches in the prefill and its time at one layer's shapes, with those
-of the phase-5/6 entry point under ``entry_point``, and phase 9's in-model
-calls and the mixtral/minicpm3 shapes of phase 6 under ``paths``; its
+of the phase-5/6 entry point under ``entry_point``, and the in-model calls
+of phases 9 and 10 and their phase-6 shapes under ``paths``; its
 ``launches`` sums every LM prefill's count) and, last, the device JSON
 line.
 TF32 is off throughout, so the plain versions' f32 products are f32.
@@ -420,14 +440,17 @@ def _heads(x, b, h, s, hd):
     return x.transpose(1, 2).reshape(b * h, s, hd).contiguous()
 
 
-def mha_plain(q, k, v, scale=None, window=None):
+def mha_plain(q, k, v, scale=None, window=None, causal=True):
     """flash_mha's plain version: the GQA repeat and the (B*H, S, hd)
-    layout around flash_attention_ref, on the tensors' own device."""
+    layout around flash_attention_ref, on the tensors' own device; k/v
+    (B, T, KV, hd), T != S without the causal mask."""
     from repro_torch.kernels.flash_attn import flash_attention_ref
     b, s, h, hd = q.shape
+    t = k.shape[1]
     n_rep = h // k.shape[2]
-    kr, vr = (t.repeat_interleave(n_rep, dim=2) for t in (k, v))
-    out = flash_attention_ref(*(_heads(t, b, h, s, hd) for t in (q, kr, vr)),
+    kr, vr = (x.repeat_interleave(n_rep, dim=2) for x in (k, v))
+    out = flash_attention_ref(_heads(q, b, h, s, hd), _heads(kr, b, h, t, hd),
+                              _heads(vr, b, h, t, hd), causal=causal,
                               scale=scale, window=window)
     return out.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
 
@@ -706,22 +729,34 @@ def _counted(fn, kernel: str):
     return out, counts
 
 
-def _where_err(got, want, dt: str) -> str:
+def _where_err(got, want, dt: str, scaled: bool = False) -> str:
     """Where the largest |got - want| of a (B, S, H*hd) attention output
     lies (its query row, and |want| there), the mean |err|, and the largest
-    error over the rows that see at least 64 keys, held to FLASH_LATE_TOL."""
+    error over the rows that see at least 64 keys, held to FLASH_LATE_TOL.
+    ``scaled`` (the model layers of phase 10, whose outputs reach 2 and
+    more) holds each element of those rows to FLASH_LATE_TOL times its
+    |want| where that exceeds 1: both sides round the output to bf16 once,
+    so they may differ by an ulp of the value, which is 2^-6 at 2."""
     diff = (got.float() - want.float()).abs()
     i = int(diff.argmax())
     row = (i // diff.shape[2]) % diff.shape[1]
-    late = float(diff[:, FLASH_LATE_ROWS:].max())
+    late_diff = diff[:, FLASH_LATE_ROWS:]
+    late = float(late_diff.max())
     tol = FLASH_LATE_TOL.get(dt, FLASH_TOL[dt])
-    if late > tol:
+    bound = tol
+    if scaled:
+        bound = tol * want[:, FLASH_LATE_ROWS:].float().abs().clamp_min(1.0)
+    if bool((late_diff > bound).any()):
+        j = int((late_diff - bound).argmax())
         raise AssertionError(f"max |err| {late:.3e} over rows >= "
-                             f"{FLASH_LATE_ROWS} exceeds {tol}")
+                             f"{FLASH_LATE_ROWS} exceeds {tol} (x max(1, "
+                             f"|want|): {scaled}); worst where |want| = "
+                             f"{float(want[:, FLASH_LATE_ROWS:].flatten()[j]):.4f}")
     return (f"largest at query row {row} where |want| = "
             f"{float(want.flatten()[i].float().abs()):.4f}; mean |err| "
             f"{float(diff.mean()):.3e}; max |err| over rows >= "
-            f"{FLASH_LATE_ROWS} {late:.3e} (tolerance {tol})")
+            f"{FLASH_LATE_ROWS} {late:.3e} (tolerance {tol}"
+            f"{' x max(1, |want|)' if scaled else ''})")
 
 
 def drive_entry_points(dev, err: dict) -> dict:
@@ -906,29 +941,44 @@ def time_flash(paths: dict, err: dict) -> list:
     return out
 
 
-# The (B*H, S, d) tensors the prefills of phase 9 hand K5 a layer:
-# mixtral-8x7b (src/repro/configs/archs.py:34; 32 heads on 8 KV heads, hd
-# 128, window 4096) at S = 8192, and minicpm3-4b's MLA (:108; 40 heads, q/k
-# 64 + 32 wide, v 64 zero-padded to 96, scale 1/sqrt(96)) at S = 2048.
+# The (B*H, S, d) q and (B*H, T, d) k/v the prefills of phases 9 and 10 hand
+# K5 a layer (T = S unless given; causal unless said; v's width vd = d
+# unless given):
+#  * mixtral-8x7b (src/repro/configs/archs.py:34; 32 heads on 8 KV heads, hd
+#    128, window 4096) at S = 8192;
+#  * minicpm3-4b's MLA (:108; 40 heads, q/k 64 + 32 wide, v 64 zero-padded
+#    to 96, scale 1/sqrt(96)) at S = 2048;
+#  * recurrentgemma-2b's local attention (:119; 10 heads on one KV head, hd
+#    256, window 2048) at S = 8192;
+#  * whisper-base (:133; 8 heads, hd 64, B = 16): the encoder over 1500
+#    frames and the cross attention of a 448-token prompt over them, both
+#    without the mask, and the decoder's causal self-attention at S = 448.
 K5_MODEL_SHAPES = {
     "mixtral-8x7b": dict(bh=32, s=8192, d=128, window=4096, vd=128),
     "minicpm3-4b": dict(bh=40, s=2048, d=96, window=None, vd=64),
+    "recurrentgemma-2b": dict(bh=10, s=8192, d=256, window=2048),
+    "whisper-base encoder": dict(bh=128, s=1500, d=64, causal=False),
+    "whisper-base cross": dict(bh=128, s=448, t=1500, d=64, causal=False),
+    "whisper-base decoder self": dict(bh=128, s=448, d=64),
 }
 
 
-def _visible_pairs(s: int, window=None) -> int:
-    """(query, key) pairs a causal mask with ``window`` lets through."""
+def _visible_pairs(s: int, window=None, t=None) -> int:
+    """(query, key) pairs a causal mask with ``window`` lets through; all
+    s * t without the mask (``t`` given)."""
+    if t is not None:
+        return s * t
     if window is None or window >= s:
         return s * (s + 1) // 2
     return window * (window + 1) // 2 + (s - window) * window
 
 
 def time_flash_models(dev) -> dict:
-    """Phase 6, K5 bf16 at phase 9's layer shapes (K5_MODEL_SHAPES): each
-    beside its bound (2*(d + vd) operations a visible pair), its plain
-    version and SDPA on the same tensors (the window as a boolean band
-    mask); mixtral's with its window and without, the same inputs in
-    turn."""
+    """Phase 6, K5 bf16 at the layer shapes of phases 9 and 10
+    (K5_MODEL_SHAPES): each beside its bound (2*(d + vd) operations a
+    visible pair), its plain version and SDPA on the same tensors (a
+    window as a boolean band mask); a windowed shape with its window and
+    without, the same inputs in turn."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -938,21 +988,24 @@ def time_flash_models(dev) -> dict:
     out = {}
     for name, c in K5_MODEL_SHAPES.items():
         bh, s, d = c["bh"], c["s"], c["d"]
-        q, k, v = (_normal(rng, (bh, s, d), dev, "bfloat16") for _ in range(3))
-        v[..., c["vd"]:] = 0
+        t, vd = c.get("t", s), c.get("vd", d)
+        causal, window = c.get("causal", True), c.get("window")
+        q = _normal(rng, (bh, s, d), dev, "bfloat16")
+        k, v = (_normal(rng, (bh, t, d), dev, "bfloat16") for _ in range(2))
+        v[..., vd:] = 0
         scale = d ** -0.5
-        for w in ((c["window"], None) if c["window"] else (None,)):
+        for w in ((window, None) if window else (None,)):
             # 20 calls: the windowed / causal ratio below is a gate
-            kt = _time_ms(lambda: flash_attention(q, k, v, scale=scale,
-                                                  window=w),
-                          iters=20, warmup=3, graph=False)
-            pt = _time_ms(lambda: flash_attention_ref(q, k, v, scale=scale,
-                                                      window=w),
-                          iters=2, warmup=1, graph=False)
-            q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+            kt = _time_ms(lambda: flash_attention(
+                q, k, v, causal=causal, block_q=s, block_k=t, scale=scale,
+                window=w), iters=20, warmup=3, graph=False)
+            pt = _time_ms(lambda: flash_attention_ref(
+                q, k, v, causal=causal, scale=scale, window=w),
+                iters=2, warmup=1, graph=False)
+            q4, k4, v4 = (x.view(1, bh, -1, d) for x in (q, k, v))
             if w is None:
                 lib = lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True, scale=scale)
+                    q4, k4, v4, is_causal=causal, scale=scale)
             else:
                 i = torch.arange(s, device=dev)
                 band = ((i[None, :] <= i[:, None])
@@ -962,29 +1015,33 @@ def time_flash_models(dev) -> dict:
             lt = _time_ms(lib, iters=5, warmup=1, graph=False)
             # a score dot of d and a value product of vd (MLA's v is
             # zero-padded from vd to d) a visible pair
-            ops = 2 * (d + c["vd"]) * bh * _visible_pairs(s, w)
-            bound = _bound(4 * q.numel() * q.element_size(), ops,
+            pairs = _visible_pairs(s, w, None if causal else t)
+            ops = 2 * (d + vd) * bh * pairs
+            bound = _bound((2 * s + 2 * t) * bh * d * q.element_size(), ops,
                            BF16_OPS_PER_S)
-            key = f"{name} window {w}" if c["window"] else name
+            key = f"{name} window {w}" if window else name
+            mask = (f"causal, window {w}" if causal
+                    else "no mask")
             out[key] = dict(ms=kt["ms"], eager_ms=kt["eager_ms"],
                             plain_ms=pt["ms"], library_ms=lt["ms"], **bound,
                             bound_share=bound["bound_ms"] / kt["ms"],
                             tflops=ops / (kt["ms"] * 1e-3) / 1e12,
                             shape=f"{name} prefill, one layer: B*H={bh}, "
-                                  f"S=T={s}, d={d}, bf16, causal, window {w}")
+                                  f"S={s}, T={t}, d={d}, bf16, {mask}")
             print(f"[time] flash_attn_bfloat16 at {key} (B*H={bh}, S={s}, "
-                  f"d={d}): kernel_ms {kt['ms']:.4f}, bound_ms "
-                  f"{bound['bound_ms']:.4f} ({bound['bound_by']}; "
-                  f"{bound['bound_ms'] / kt['ms']:.3f} of it), plain_ms "
+                  f"T={t}, d={d}, {mask}): kernel_ms {kt['ms']:.4f}, "
+                  f"bound_ms {bound['bound_ms']:.4f} ({bound['bound_by']}; "
+                  f"{bound['bound_ms'] / kt['ms']:.3f} of it; "
+                  f"{pairs * bh / 1e6:.1f} M visible pairs), plain_ms "
                   f"{pt['ms']:.3f}, SDPA {lt['ms']:.4f} ms")
-        if c["window"]:
-            r = (out[f"{name} window {c['window']}"]["ms"]
+        if window:
+            r = (out[f"{name} window {window}"]["ms"]
                  / out[f"{name} window None"]["ms"])
             out[name + " windowed / causal"] = r
             print(f"[time] flash_attn_bfloat16 at {name}: windowed / causal "
-                  f"{r:.3f} (visible pairs {_visible_pairs(s, c['window'])} "
+                  f"{r:.3f} (visible pairs {_visible_pairs(s, window)} "
                   f"/ {_visible_pairs(s)} = "
-                  f"{_visible_pairs(s, c['window']) / _visible_pairs(s):.3f})")
+                  f"{_visible_pairs(s, window) / _visible_pairs(s):.3f})")
             if r > 0.85:
                 raise AssertionError(f"K5 with the window takes {r:.3f} of "
                                      f"the causal call: tiles not skipped")
@@ -1537,7 +1594,7 @@ def drive_lm(dev, err: dict) -> dict:
 LM_FAMILIES = {"mixtral-8x7b": (16, 8192), "minicpm3-4b": (None, 2048),
                "llama4-maverick-400b-a17b": (2, 512),
                "qwen2-vl-72b": (2, 2048)}
-def _build_lm(dev, name: str, n_layers):
+def _build_lm(dev, name: str, n_layers, tag: str = "lm9"):
     """``build`` at the published width, cut to ``n_layers``; prints its
     size."""
     import torch
@@ -1553,44 +1610,48 @@ def _build_lm(dev, name: str, n_layers):
     init_s = time.perf_counter() - t0
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     n = sum(p.numel() for p in model.parameters())
-    print(f"[lm9] {name} ({cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{cfg.n_heads} heads, {cfg.n_kv} KV, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab}, experts {cfg.n_experts} top-{cfg.top_k}, window "
-          f"{cfg.window}): {n} weights, {w_bytes / 1e9:.3f} GB, random from "
-          f"seed {SEED} in {init_s:.2f} s")
+    print(f"[{tag}] {name} ({cfg.n_layers} layers, pattern {cfg.pattern} + "
+          f"{cfg.pattern_tail}, encoder {cfg.enc_layers}, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {cfg.n_kv} KV, hd {cfg.hd}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, experts {cfg.n_experts} top-{cfg.top_k}, "
+          f"window {cfg.window}): {n} weights, {w_bytes / 1e9:.3f} GB, "
+          f"random from seed {SEED} in {init_s:.2f} s")
     return cfg, model, w_bytes
 
 
-def _counted_prefill(model, cfg, b: int, s: int, **inputs):
+def _counted_prefill(model, cfg, b: int, s: int, *, want=None,
+                     tag: str = "lm9", **inputs):
     """One prefill forward with the launch counts set to 0 just before and
-    read just after; fails unless K5 launched exactly once a layer and the
-    logits are finite f32 of the full shape."""
+    read just after; fails unless K5 launched exactly ``want`` times (once
+    a layer by default) and the logits are finite f32 of the full shape."""
     import torch
     from repro_torch.kernels import launches
+    want = cfg.n_layers if want is None else want
     launches.reset()
     logits, aux = model(inputs.pop("toks", None), **inputs)
     torch.cuda.synchronize()
     counts = launches.snapshot()
-    if counts != {"flash_attn": cfg.n_layers}:
+    if counts != ({"flash_attn": want} if want else {}):
         raise AssertionError(f"{cfg.name}: a prefill launched {counts}; want "
-                             f"flash_attn x {cfg.n_layers}, one a layer")
+                             f"flash_attn x {want}")
     if (logits.shape != (b, s, cfg.vocab) or logits.dtype != torch.float32
             or not bool(torch.isfinite(logits).all())):
         raise AssertionError(f"{cfg.name}: prefill logits "
                              f"{tuple(logits.shape)} {logits.dtype}")
-    print(f"[lm9] {cfg.name} prefill B={b} S={s}: launches {counts}; logits "
-          f"{tuple(logits.shape)} f32, finite; aux {float(aux):.4f}")
-    return logits, counts
+    print(f"[{tag}] {cfg.name} prefill B={b} S={s}: launches "
+          f"{counts or 'none'}; logits {tuple(logits.shape)} f32, finite; "
+          f"aux {float(aux):.4f}")
+    return logits, {"flash_attn": counts.get("flash_attn", 0)}
 
 
-def _decode(model, toks, n: int, pick=None):
-    """Decode of the first ``n`` tokens from an empty cache of LM_CACHE, and
-    each MoE layer's routing in call order (step by step, the layers in
+def _decode(model, toks, n: int, pick=None, max_len: int = LM_CACHE):
+    """Decode of the first ``n`` tokens from an empty cache of ``max_len``,
+    and each MoE layer's routing in call order (step by step, the layers in
     order); with ``pick``, each MoE call routes the experts it gives
     (``moe.routing_log``)."""
     import torch
     from repro_torch.models import moe as M
-    cache = model.init_cache(toks.shape[0], LM_CACHE)
+    cache = model.init_cache(toks.shape[0], max_len)
     out, log = [], []
     with M.routing_log(log, pick):
         for t in range(n):
@@ -1600,11 +1661,11 @@ def _decode(model, toks, n: int, pick=None):
     return torch.cat(out, dim=1), log
 
 
-def _lm_times(model, toks, n: int) -> tuple:
+def _lm_times(model, toks, n: int, max_len: int = LM_CACHE) -> tuple:
     """Prefill ms, and decode ms a token (the mean of tokens 1..n-1 after
-    token 0 from an empty cache)."""
+    token 0 from an empty cache of ``max_len``)."""
     pre = _time_ms(lambda: model(toks), iters=2, warmup=1, graph=False)
-    cache = model.init_cache(toks.shape[0], LM_CACHE)
+    cache = model.init_cache(toks.shape[0], max_len)
     steps = iter(range(n))
 
     def step():
@@ -1939,11 +2000,372 @@ def drive_lm_families(dev, err: dict) -> dict:
     return out
 
 
+# -- phase 10: the recurrent and encoder-decoder paths ---------------------------
+
+# name -> (batch, prefill length, K5 launches a prefill); whole models at the
+# published widths of src/repro/configs/archs.py, bf16 weights random from
+# SEED:
+#  * recurrentgemma-2b (:119): 26 layers, 18 RG-LRU and 8 local attention
+#    (window 2048, one KV head, hd 256), 2.50 G weights; S = 8192, so the
+#    window binds for the last 6144 queries; decode into ring caches of
+#    2048.
+#  * xlstm-350m (:52): 24 layers, 21 mLSTM and 3 sLSTM, 0.41 G weights;
+#    S = 2048, four of its 512-token chunks; no attention, so no K5.
+#  * whisper-base (:133): 6 encoder and 6 decoder layers; B = 16 stub frame
+#    tensors of 1500 frames (the reference's min(S, 1500),
+#    src/repro/distributed/steps.py:196) and a prompt of 448 tokens
+#    (whisper's context): K5 in the encoder (no mask), the decoder's self
+#    attention (causal) and its cross attention (no mask, 448 x 1500).
+LM_PHASE10 = {"recurrentgemma-2b": (1, 8192, 8), "xlstm-350m": (1, 2048, 0),
+              "whisper-base": (16, 448, 18)}
+WHISPER_FRAMES = 1500
+
+
+def _weight_counts(modules) -> tuple:
+    """(bf16, f32) element counts of the matrices the modules multiply
+    activations by: their 2-D parameters (the embedding as the tied LM
+    head; not RG-LRU's depthwise conv or whisper's positions, which are
+    elementwise)."""
+    import torch
+    n = {torch.bfloat16: 0, torch.float32: 0}
+    for m in modules:
+        for name, p in m.named_parameters():
+            if p.dim() == 2 and not name.endswith(("conv", "dec_pos")):
+                n[p.dtype] += p.numel()
+    return n[torch.bfloat16], n[torch.float32]
+
+
+def _state_bytes(tree) -> int:
+    """Bytes of every tensor in a cache or state tree."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_state_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_state_bytes(v) for v in tree)
+    return 0
+
+
+def _phase10_report(name, b, s, pre_ms, flops16, flops32, dec_ms,
+                    dec_bytes, k5_ms, prof, extra="") -> dict:
+    """Prints the prefill and decode a token beside their bounds (bf16
+    operations / 989 TFLOP/s + f32 operations / 67 TFLOP/s; the bytes a
+    token reads / 3.35 TB/s), K5's share and the idle share."""
+    pre_bound = (flops16 / BF16_OPS_PER_S + flops32 / FP32_OPS_PER_S) * 1e3
+    dec_bound = dec_bytes / HBM_BYTES_PER_S * 1e3
+    busy = prof.get("busy_ms")
+    idle = None if busy is None else 1 - busy / prof["wall_ms"]
+    print(f"[lm10] {_card_line()}")
+    print(f"[lm10] {name} prefill B={b} S={s}: {pre_ms:.3f} ms, bound "
+          f"{pre_bound:.3f} ms ({flops16 / 1e12:.3f} bf16 TFLOP / 989 + "
+          f"{flops32 / 1e12:.4f} f32 TFLOP / 67 TFLOP/s; {pre_bound / pre_ms:.3f}"
+          f" of the bound); K5 {k5_ms:.3f} ms of it ({k5_ms / pre_ms:.4f}); "
+          f"idle share {'not measured' if idle is None else f'{idle:.3f}'}"
+          f"{extra}")
+    print(f"[lm10] {name} decode B={b}: {dec_ms:.3f} ms a token (mean of "
+          f"tokens 1..{LM_DECODE - 1}); bound {dec_bound:.4f} ms ({dec_bytes} "
+          f"weight and state bytes / 3.35 TB/s; {dec_bound / dec_ms:.4f} of "
+          f"it)")
+    return dict(prefill_ms=pre_ms, prefill_bound_ms=pre_bound,
+                prefill_bf16_tflop=flops16 / 1e12,
+                prefill_f32_tflop=flops32 / 1e12, decode_ms=dec_ms,
+                decode_bound_ms=dec_bound, decode_bytes=dec_bytes,
+                k5_ms=k5_ms, k5_share=k5_ms / pre_ms, idle_share=idle,
+                profile_prefill=prof)
+
+
+def drive_recurrentgemma(dev, err: dict) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_mha)
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as B
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
+    name = "recurrentgemma-2b"
+    b, s, n_k5 = LM_PHASE10[name]
+    cfg, model, w_bytes = _build_lm(dev, name, None, tag="lm10")
+    rng = np.random.default_rng(SEED + 13)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    logits, counts = _counted_prefill(model, cfg, b, s, want=n_k5,
+                                      tag="lm10", toks=toks)
+
+    # The first local-attention layer (block 2), its input from blocks 0-1:
+    # K5 with the window, at d 256 with the KV head repeated 10 times,
+    # against its plain version.
+    li = model.kinds.index("attn")
+    x = B.embed(model.embedding, toks)
+    x0 = x
+    for kind, p in zip(model.kinds[:li], model.layers[:li]):
+        x, _ = T.block_apply(kind, p, x, cfg, None)
+    lp = model.layers[li]
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    q, k, v = A._qkv(lp["attn"], T._norm(cfg, lp["ln1"], x),
+                     T._attn_cfg(cfg), pos)
+    got = flash_mha(q, k, v, window=cfg.window)
+    want = mha_plain(q, k, v, window=cfg.window)
+    e = _close(got, want, FLASH_TOL["bfloat16"])
+    err["flash_attn_bfloat16"] = max(err["flash_attn_bfloat16"], e)
+    free = mha_plain(q, k, v)
+    binds = float((free.float() - want.float()).abs()[:, cfg.window:].max())
+    print(f"[lm10] {name} K5 in block {li} with the window {cfg.window} (q "
+          f"{tuple(q.shape)}, k/v {tuple(k.shape)} bf16, the KV head "
+          f"repeated {cfg.n_heads} times): max |err| {e:.3e} against the "
+          f"plain version (tolerance {FLASH_TOL['bfloat16']}); "
+          f"{_where_err(got, want, 'bfloat16', scaled=True)}; the window moves rows >= "
+          f"{cfg.window} by up to {binds:.3e}")
+    del got, want, free
+
+    # Decode into the RG-LRU states and ring caches of the window.
+    dec, _ = _decode(model, toks, LM_DECODE, max_len=s)
+    chk = _decode_check(name, dec, logits)
+    print(f"[lm10] {name} decode of the first {LM_DECODE} tokens (RG-LRU "
+          f"states, ring caches of {cfg.window}) against the forward's "
+          f"logits: max |diff| / max |logit| {chk['rel']:.4e} (bound "
+          f"{LM_DECODE_TOL}), top-1 agreement {chk['top1']:.4f}")
+    del dec, logits
+
+    # Times: the prefill, K5's call and the kernel alone (the wrapper's
+    # repeat_interleave and layout copies between), the RG-LRU block and
+    # its scan alone, at layer shapes.
+    pre_ms, dec_ms, cache = _lm_times(model, toks, LM_DECODE, max_len=s)
+    call = _time_ms(lambda: flash_mha(q, k, v, window=cfg.window), iters=5,
+                    warmup=1, graph=False)
+    qf = _heads(q, b, cfg.n_heads, s, cfg.hd)
+    kf, vf = (_heads(t.repeat_interleave(cfg.n_heads, dim=2), b,
+                     cfg.n_heads, s, cfg.hd) for t in (k, v))
+    kern = _time_ms(lambda: flash_attention(qf, kf, vf, block_q=s,
+                                            block_k=s, window=cfg.window),
+                    iters=5, warmup=1, graph=False)
+    l0 = model.layers[0]
+    h0 = T._norm(cfg, l0["ln1"], x0)
+    rg = _time_ms(lambda: R.rglru_block(l0["rglru"], h0, T._rglru_cfg(cfg)),
+                  iters=3, warmup=1, graph=False)
+    a_, g_ = R._rglru_gates(l0["rglru"], R._causal_depthwise_conv(
+        B.dense(l0["rglru"]["wx"], h0), l0["rglru"]["conv"]))
+    scan = _time_ms(lambda: R.linear_scan(a_, g_), iters=3, warmup=1,
+                    graph=False)
+    n_rg = model.kinds.count("rglru")
+    w16, w32 = _weight_counts([model])
+    flops16 = (2.0 * b * s * w16 + 4.0 * cfg.hd * cfg.n_heads * b
+               * _visible_pairs(s, cfg.window) * n_k5)
+    prof = _profile(lambda: model(toks), f"{name} prefill B={b} S={s}")
+    out = _phase10_report(
+        name, b, s, pre_ms, flops16, 2.0 * b * s * w32, dec_ms,
+        w_bytes + _state_bytes(cache), n_k5 * call["ms"], prof,
+        extra=(f"; K5's call {call['ms']:.4f} ms a layer, the kernel alone "
+               f"{kern['ms']:.4f} ms (the wrapper's KV repeat and copies "
+               f"{call['ms'] - kern['ms']:.4f} ms); the RG-LRU block "
+               f"{rg['ms']:.3f} ms x {n_rg} = {n_rg * rg['ms'] / pre_ms:.4f} "
+               f"of the prefill, its f32 scan alone {scan['ms']:.3f} ms x "
+               f"{n_rg} = {n_rg * scan['ms'] / pre_ms:.4f}"))
+    out.update(launches=counts["flash_attn"], decode_rel_err=chk["rel"],
+               decode_top1=chk["top1"], weight_bytes=w_bytes,
+               k5_call_ms=call["ms"], k5_kernel_ms=kern["ms"],
+               rglru_block_ms=rg["ms"], rglru_scan_ms=scan["ms"],
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print(f"[lm10] {name} peak memory {out['peak_gb']:.3f} GB")
+    return out
+
+
+def drive_xlstm(dev, err: dict) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models import transformer as T
+    name = "xlstm-350m"
+    b, s, n_k5 = LM_PHASE10[name]
+    cfg, model, w_bytes = _build_lm(dev, name, None, tag="lm10")
+    rng = np.random.default_rng(SEED + 14)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    logits, counts = _counted_prefill(model, cfg, b, s, want=n_k5,
+                                      tag="lm10", toks=toks)
+    dec, _ = _decode(model, toks, LM_DECODE)
+    chk = _decode_check(name, dec, logits)
+    print(f"[lm10] {name} decode of the first {LM_DECODE} tokens (mLSTM and "
+          f"sLSTM states) against the forward's logits: max |diff| / max "
+          f"|logit| {chk['rel']:.4e} (bound {LM_DECODE_TOL}), top-1 "
+          f"agreement {chk['top1']:.4f}")
+    del dec, logits
+
+    pre_ms, dec_ms, cache = _lm_times(model, toks, LM_DECODE)
+    # Each block kind's time at layer shapes (the residual and norm
+    # included), and its share of the prefill: the sLSTM's loop over 2048
+    # steps against the mLSTM's four chunks.
+    x = B.embed(model.embedding, toks)
+    times = {}
+    for kind in ("mlstm", "slstm"):
+        i = model.kinds.index(kind)
+        times[kind] = _time_ms(lambda: T.block_apply(
+            kind, model.layers[i], x, cfg, None), iters=2, warmup=1,
+            graph=False)["ms"]
+    n = {k: model.kinds.count(k) for k in times}
+    w16, w32 = _weight_counts([model])
+    m = T._mlstm_cfg(cfg)
+    q_len, hd = min(m.chunk, s), m.head_dim
+    # mLSTM's chunkwise arithmetic in f32: in a chunk and head, the scores
+    # and their value product (dense over the chunk) and the inter-chunk
+    # product and state update.
+    mlstm_ops = (n["mlstm"] * b * m.n_heads * (s // q_len)
+                 * (4.0 * q_len * q_len * hd + 4.0 * q_len * hd * hd))
+    prof = _profile(lambda: model(toks), f"{name} prefill B={b} S={s}")
+    share = {k: n[k] * times[k] / pre_ms for k in times}
+    out = _phase10_report(
+        name, b, s, pre_ms, 2.0 * b * s * w16, 2.0 * b * s * w32 + mlstm_ops,
+        dec_ms, w_bytes + _state_bytes(cache), 0.0, prof,
+        extra=(f"; the mLSTM block {times['mlstm']:.3f} ms x {n['mlstm']} = "
+               f"{share['mlstm']:.4f} of the prefill, the sLSTM block (a loop"
+               f" of {s} steps) {times['slstm']:.3f} ms x {n['slstm']} = "
+               f"{share['slstm']:.4f}"))
+    out.update(launches=counts["flash_attn"], decode_rel_err=chk["rel"],
+               decode_top1=chk["top1"], weight_bytes=w_bytes,
+               mlstm_block_ms=times["mlstm"], slstm_block_ms=times["slstm"],
+               slstm_share=share["slstm"], mlstm_share=share["mlstm"],
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print(f"[lm10] {name} peak memory {out['peak_gb']:.3f} GB")
+    return out
+
+
+def drive_whisper(dev, err: dict) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attn import flash_mha
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as B
+    from repro_torch.models import encdec as E
+    name = "whisper-base"
+    b, s, n_k5 = LM_PHASE10[name]
+    t_enc = WHISPER_FRAMES
+    cfg, model, w_bytes = _build_lm(dev, name, None, tag="lm10")
+    rng = np.random.default_rng(SEED + 15)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    frames = torch.randn((b, t_enc, cfg.d_model), generator=gen, device=dev,
+                         dtype=torch.float32).to(torch.bfloat16)
+    logits, counts = _counted_prefill(model, cfg, b, s, want=n_k5,
+                                      tag="lm10", toks=toks, frames=frames)
+    H, hd = cfg.n_heads, cfg.hd
+
+    # Encoder layer 0's attention and decoder layer 0's cross attention
+    # through K5 without the mask, against their plain versions; T = 1500
+    # is off K5's key tiles.
+    e0, d0 = model.enc[0], model.dec[0]
+    qe, ke, ve = A._qkv(e0["attn"], B.layernorm(e0["ln1"], frames),
+                        E._acfg(cfg, False), None)
+    enc = model.encode(frames)
+    x = B.embed(model.embedding, toks) + model.dec_pos[:s].to(
+        torch.bfloat16)[None]
+    qs, ks, vs = A._qkv(d0["self"], B.layernorm(d0["ln1"], x),
+                        E._acfg(cfg, True), None)
+    x = x + A.attention(d0["self"], B.layernorm(d0["ln1"], x),
+                        E._acfg(cfg, True))
+    hq = B.layernorm(d0["ln2"], x)
+    qc = B.dense(d0["cross"]["wq"], hq).reshape(b, s, H, hd)
+    kc, vc = (B.dense(d0["cross"][w], enc).reshape(b, t_enc, cfg.n_kv, hd)
+              for w in ("wk", "wv"))
+    calls = {"encoder": (qe, ke, ve, False), "cross": (qc, kc, vc, False),
+             "decoder self": (qs, ks, vs, True)}
+    for key in ("encoder", "cross"):
+        q, k, v, _ = calls[key]
+        got = flash_mha(q, k, v, causal=False)
+        want = mha_plain(q, k, v, causal=False)
+        e = _close(got, want, FLASH_TOL["bfloat16"])
+        err["flash_attn_bfloat16"] = max(err["flash_attn_bfloat16"], e)
+        print(f"[lm10] {name} K5 in the {key} attention of layer 0 (q "
+              f"{tuple(q.shape)}, k/v {tuple(k.shape)} bf16, no mask): max "
+              f"|err| {e:.3e} against the plain version (tolerance "
+              f"{FLASH_TOL['bfloat16']}); {_where_err(got, want, 'bfloat16', scaled=True)}")
+        del got, want
+
+    # Decode from the encoder's cross K/V and empty self caches.
+    cache = model.init_cache(frames, LM_CACHE)
+    dec = []
+    for t in range(LM_DECODE):
+        lg, cache = model.decode_step(toks[:, t:t + 1], cache)
+        dec.append(lg)
+    torch.cuda.synchronize()
+    chk = _decode_check(name, torch.cat(dec, dim=1), logits)
+    print(f"[lm10] {name} decode of the first {LM_DECODE} tokens (cross K/V "
+          f"of {t_enc} frames, self caches of {LM_CACHE}) against the "
+          f"forward's logits: max |diff| / max |logit| {chk['rel']:.4e} "
+          f"(bound {LM_DECODE_TOL}), top-1 agreement {chk['top1']:.4f}")
+    del dec, logits
+
+    pre = _time_ms(lambda: model(toks, frames), iters=2, warmup=1,
+                   graph=False)
+    cache = model.init_cache(frames, LM_CACHE)
+    steps = iter(range(LM_DECODE))
+
+    def step():
+        nonlocal cache
+        t = next(steps)
+        _, cache = model.decode_step(toks[:, t:t + 1], cache)
+
+    step()
+    dec_ms = _time_ms(step, iters=LM_DECODE - 1, warmup=0, graph=False)["ms"]
+    k5 = {key: _time_ms(lambda: flash_mha(q, k, v, causal=causal), iters=5,
+                        warmup=1, graph=False)["ms"]
+          for key, (q, k, v, causal) in calls.items()}
+    k5_ms = sum(k5.values()) * cfg.n_layers     # enc_layers == n_layers == 6
+    # The encoder's matrices multiply 1500 frames a sequence, the cross
+    # attention's K/V projections too; the decoder's the 448 tokens.
+    enc16, _ = _weight_counts(list(model.enc))
+    kv16 = sum(p["cross"][w]["w"].numel() for p in model.dec
+               for w in ("wk", "wv"))
+    dec16, _ = _weight_counts(list(model.dec) + [model.embedding])
+    pairs = (cfg.enc_layers * t_enc * t_enc + cfg.n_layers
+             * (_visible_pairs(s) + s * t_enc))
+    flops16 = (2.0 * b * t_enc * (enc16 + kv16) + 2.0 * b * s * (dec16 - kv16)
+               + 4.0 * hd * H * b * pairs)
+    # A decode step reads the decoder's matrices but the cross K/V
+    # projections (applied once, in init_cache), the LM head, and the
+    # cross K/V and self caches.
+    dec_bytes = 2 * (dec16 - kv16) + _state_bytes(cache["dec"])
+    prof = _profile(lambda: model(toks, frames),
+                    f"{name} prefill B={b} S={s} frames {t_enc}")
+    out = _phase10_report(
+        name, b, s, pre["ms"], flops16, 0.0, dec_ms, dec_bytes, k5_ms, prof,
+        extra="; K5 a layer: " + ", ".join(
+            f"{key} {ms:.4f} ms" for key, ms in k5.items()))
+    out.update(launches=counts["flash_attn"], decode_rel_err=chk["rel"],
+               decode_top1=chk["top1"], weight_bytes=w_bytes,
+               k5_call_ms={key: ms for key, ms in k5.items()},
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print(f"[lm10] {name} peak memory {out['peak_gb']:.3f} GB")
+    return out
+
+
+def drive_phase10(dev, err: dict) -> dict:
+    """Phase 10: each model built, driven and freed in turn; a failure in
+    one is reported after the others have run, and fails the phase."""
+    import gc
+    import traceback
+    import torch
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out, failed = {}, []
+    for name, fn in (("recurrentgemma-2b", drive_recurrentgemma),
+                     ("xlstm-350m", drive_xlstm),
+                     ("whisper-base", drive_whisper)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            out[name] = fn(dev, err)
+        except Exception as exc:                # reported below, then raised
+            traceback.print_exc()
+            failed.append(f"{name}: {exc}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("phase 10 failed: " + "; ".join(failed))
+    return out
+
+
 def lm_path(kernels: list, lm: dict, err: dict) -> None:
     """K5 bf16's entry of the kernels line takes its main path's numbers,
     phase 8's prefill (launches, and time at a layer's shapes); its numbers
     at the phase-5/6 entry point (S = 4096) move under ``entry_point``, and
-    each phase-9 model's counted prefill (its own run, the counts set to 0
+    each phase-9 and phase-10 model's counted prefill (its own run, the counts set to 0
     before it) and its K5 times under ``paths[name]``."""
     k5 = next(k for k in kernels if k["name"] == "flash_attn_bfloat16")
     entry = {key: k5.pop(key) for key in
@@ -1996,6 +2418,7 @@ def main() -> int:
     check_model(dev)
     lm = drive_lm(dev, err)
     lm["families"] = drive_lm_families(dev, err)
+    lm["families"].update(drive_phase10(dev, err))
     lm["k5_model_shapes"] = shapes
     lm_path(kernels, lm, err)
 

@@ -1,8 +1,8 @@
 """The 10 architectures of the model zoo, at their published widths.
 
 Each ``<id>()`` returns the FULL config and ``get_reduced(<name>)`` a small
-same-family config for CPU smoke tests (``models.build`` runs the dense
-family's full configs on the card). Sources are noted per entry;
+same-family config for CPU smoke tests (``models.build`` builds every
+arch, full or reduced, on the card or the CPU). Sources are noted per entry;
 μ-ORCA-technique applicability is in DESIGN.md §4 (the technique's T2/T3
 components apply to every arch; T1 whole-model fusion applies fully only to
 the jet-tagging model class).

@@ -1,7 +1,7 @@
 """Architecture configuration schema + input shape definitions.
 
 One ``ArchConfig`` fully determines a model in :mod:`repro_torch.models.transformer`
-(an encoder-decoder when ``enc_layers > 0``, not ported yet). Layer structure
+(or :mod:`repro_torch.models.encdec` when ``enc_layers > 0``). Layer structure
 is a repeating ``pattern`` of block kinds plus an optional ``pattern_tail`` —
 the pattern group is the reference's unit of scan over depth; the port runs
 the groups as consecutive entries of ``Transformer.layers``.

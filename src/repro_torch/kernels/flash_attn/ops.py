@@ -5,6 +5,9 @@ dispatch, launch.
 version in ``ref.py``, a CUDA tensor launches ``csrc/flash_attn.cu`` or
 raises. ``flash_mha`` is the JAX package's GQA wrapper: it repeats the KV
 heads, collapses batch and heads, pads S to the block grid and slices back.
+Unlike the JAX wrapper, which exposes the causal mask only, it also takes
+``causal=False`` with T != S (whisper's encoder and cross attention): the
+reference computes those in its dense ``_sdpa`` with no mask.
 
 Both take an optional ``window`` on the causal mask, the reference's
 sliding window (``src/repro/models/attention.py:116-123``, and its chunked
@@ -105,31 +108,49 @@ def _launch(q, k, v, causal, scale, window):
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              block_q: int = 128, block_k: int = 128,
+              causal: bool = True, block_q: int = 128, block_k: int = 128,
               scale: Optional[float] = None,
               window: Optional[int] = None) -> torch.Tensor:
-    """Causal GQA flash attention. q (B, S, H, hd); k/v (B, T, KV, hd) with
-    T == S (self-attention). Returns (B, S, H*hd). ``scale`` defaults to
-    1/sqrt(hd); ``window``: query s sees keys s - window < t <= s."""
+    """GQA flash attention. q (B, S, H, hd); k/v (B, T, KV, hd), T == S when
+    causal (the mask is t <= s, which the reference's ``_causal_mask(S, T)``
+    equals only at T == S). Returns (B, S, H*hd). ``scale`` defaults to
+    1/sqrt(hd); ``window`` (causal only): query s sees keys
+    s - window < t <= s.
+
+    Causal, q, k and v are padded to the block grid: a padded key lies
+    above every real query, so the mask hides it. Without the mask a padded
+    key would be visible (a zero key scores 0 and dilutes the softmax), so
+    a non-causal call pads only q and hands the kernel the true T, whose
+    ragged last key tile it masks itself (T goes to the divisibility check
+    as one block)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"q (B, S, H, hd), k and v (B, S, KV, hd); got "
+        raise ValueError(f"q (B, S, H, hd), k and v (B, T, KV, hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, hd = q.shape
-    kv = k.shape[2]
-    if k.shape[1] != s or kv == 0 or h % kv:
-        raise ValueError(f"k {tuple(k.shape)} does not fit q {tuple(q.shape)}")
-    check_window(window, True)
+    t, kv = k.shape[1], k.shape[2]
+    if (k.shape[0] != b or k.shape[3] != hd or kv == 0 or h % kv
+            or (causal and t != s) or (not causal and t == 0)):
+        raise ValueError(f"k {tuple(k.shape)} does not fit q {tuple(q.shape)}"
+                         f" (causal={causal})")
+    check_window(window, causal)
     n_rep = h // kv
     if n_rep > 1:
         k = k.repeat_interleave(n_rep, dim=2)
         v = v.repeat_interleave(n_rep, dim=2)
     # (B, S, H, hd) -> (B*H, S, hd)
-    qf, kf, vf = (x.transpose(1, 2).reshape(b * h, s, hd) for x in (q, k, v))
-    sp = _round_up(s, max(block_q, block_k))
-    if sp != s:
-        qf, kf, vf = (F.pad(x, (0, 0, 0, sp - s)) for x in (qf, kf, vf))
+    qf, kf, vf = (x.transpose(1, 2).reshape(b * h, x.shape[1], hd)
+                  for x in (q, k, v))
+    if causal:
+        sp = _round_up(s, max(block_q, block_k))
+        if sp != s:
+            qf, kf, vf = (F.pad(x, (0, 0, 0, sp - s)) for x in (qf, kf, vf))
+    else:
+        sp = _round_up(s, block_q)
+        if sp != s:
+            qf = F.pad(qf, (0, 0, 0, sp - s))
+        block_k = t
     out = flash_attention(qf.contiguous(), kf.contiguous(), vf.contiguous(),
-                          causal=True, block_q=block_q, block_k=block_k,
+                          causal=causal, block_q=block_q, block_k=block_k,
                           scale=scale, window=window)
     out = out[:, :s]
     return out.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)

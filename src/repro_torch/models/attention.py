@@ -4,14 +4,11 @@ One parameterized implementation covers MHA/GQA (n_kv <= n_heads), optional
 QKV bias (qwen1.5), optional qk-norm (qwen3), a sliding window (mixtral),
 RoPE / M-RoPE (qwen2-vl), and KV-cache decode with a bf16 or int8 cache (a
 ring buffer for a window). MLA (minicpm3) is a separate path, as in the
-reference. Every causal prefill runs through the hand-written flash
-attention kernel (K5, ``kernels.flash_attn.flash_mha``) in bf16, the window
-included; decode attends over the cache in plain PyTorch, as the reference
-does outside any Pallas kernel.
-
-Not ported yet, and refused with the ROADMAP item that ports it: a
-non-causal mask in the full-sequence path (whisper's encoder, ROADMAP.md §1
-M9c).
+reference. Every prefill runs through the hand-written flash attention
+kernel (K5, ``kernels.flash_attn.flash_mha``) in bf16: causal with the
+window, or without a mask (whisper's encoder, ``causal=False``); decode
+attends over the cache in plain PyTorch, as the reference does outside any
+Pallas kernel.
 
 Shapes: x (B, S, d); q/k/v (B, S, H, hd); cache K/V (B, S_max, n_kv, hd).
 """
@@ -122,13 +119,6 @@ def _sdpa(q, k, v, mask, n_rep: int) -> torch.Tensor:
     return out.reshape(B, S, H * hd)
 
 
-def _refuse(cfg: AttnConfig) -> None:
-    if not cfg.causal:
-        raise NotImplementedError(
-            "non-causal attention (whisper's encoder) is not ported yet: "
-            "ROADMAP.md §1 M9c (encdec); the models' K5 call is causal")
-
-
 def attention(p: Params, x: torch.Tensor, cfg: AttnConfig,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence (prefill) attention.
@@ -137,17 +127,18 @@ def attention(p: Params, x: torch.Tensor, cfg: AttnConfig,
     ``_causal_mask(S, S, window)`` up to 4096 tokens and the chunked flash
     scan with the same window above) compute one function; here it is one
     call of K5 on q/k/v in bf16, with the window: a CUDA tensor launches the
-    kernel, a CPU tensor takes its plain version. The output is cast back to
-    x's dtype.
+    kernel, a CPU tensor takes its plain version. ``cfg.causal=False`` is
+    the reference's dense ``_sdpa(q, k, v, None, n_rep)`` at any length
+    (its window applies to the causal mask only, so it is ignored): one K5
+    call with ``causal=False``. The output is cast back to x's dtype.
     """
-    _refuse(cfg)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = _qkv(p, x, cfg, positions)
     bf16 = torch.bfloat16
-    out = flash_mha(q.to(bf16), k.to(bf16), v.to(bf16),
-                    window=cfg.window).to(x.dtype)
+    out = flash_mha(q.to(bf16), k.to(bf16), v.to(bf16), causal=cfg.causal,
+                    window=cfg.window if cfg.causal else None).to(x.dtype)
     return dense(p["wo"], out)
 
 

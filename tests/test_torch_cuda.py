@@ -784,6 +784,8 @@ def _routing_split(ref_log, other_log, k):
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
     return tree.to(dev)
 
 
@@ -810,17 +812,141 @@ def test_decode_matches_forward_on_cuda(dev, bf16_full_reduction, name):
     assert bool((dec.argmax(-1) == full.argmax(-1)).all())
 
 
-def test_non_causal_attention_on_cuda_raises(dev):
+def test_non_causal_attention_on_cuda_launches_k5_once(dev):
+    """Whisper's encoder attention (no mask, no RoPE) on the card: one K5
+    launch, equal to the same layer on the CPU (K5's plain version) within
+    LOGIT_TOL; S = 150 is off the key tiles, so a visible padded key would
+    show."""
     from repro_torch.models import attention as A
-    cfg = A.AttnConfig(d_model=64, n_heads=4, n_kv=2, head_dim=16,
-                       causal=False)
-    g = torch.Generator(device=dev).manual_seed(0)
-    p = A.attn_init(g, cfg, dtype=torch.bfloat16, device=dev)
-    x = torch.zeros((1, 16, 64), dtype=torch.bfloat16, device=dev)
+    cfg = A.AttnConfig(d_model=256, n_heads=4, n_kv=2, head_dim=64,
+                       causal=False, use_rope=False)
+    g = torch.Generator().manual_seed(0)
+    p = A.attn_init(g, cfg, dtype=torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 1, (2, 150, 256)).astype(np.float32)).to(torch.bfloat16)
     launches.reset()
-    with pytest.raises(NotImplementedError, match="M9c"):
-        A.attention(p, x, cfg)
+    got = A.attention(_to(p, dev), x.to(dev), cfg)
+    assert launches.snapshot() == {"flash_attn": 1}
+    assert _rel(got, A.attention(p, x, cfg)) <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,t,h,kv,hd", [
+    (2, 1500, 1500, 8, 8, 64),      # whisper-base's encoder
+    (2, 448, 1500, 8, 8, 64),       # its cross attention
+    (2, 150, 150, 4, 2, 64),
+    (1, 12, 150, 4, 1, 256)])
+def test_flash_mha_non_causal_equals_plain(dev, dtype, b, s, t, h, kv, hd):
+    """``flash_mha(causal=False)`` on the card against the plain version of
+    the same call on the CPU: q padded to the grid, the true T handed to
+    the kernel (1500 and 150 are off its key tiles)."""
+    rng = np.random.default_rng(s + t + hd)
+    q = torch.from_numpy(rng.normal(0, 1, (b, s, h, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(0, 1, (b, t, kv, hd)).astype(
+        np.float32)) for _ in range(2))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    launches.reset()
+    got = tfa.flash_mha(q.to(dev), k.to(dev), v.to(dev), causal=False)
+    assert launches.snapshot() == {"flash_attn": 1}
+    want = tfa.flash_mha(q, k, v, causal=False)
+    assert got.dtype == dtype and got.shape == (b, s, h * hd)
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+
+
+#: K5 launches a prefill of each reduced arch: recurrentgemma's two local
+#: attention layers, none in xlstm, whisper's 2 encoder + 2 x 2 decoder
+#: (self and cross) attentions.
+NEW_ARCHS = {"recurrentgemma-2b": 2, "xlstm-350m": 0, "whisper-base": 6}
+
+
+def _built_pair(name, dev):
+    """The reduced arch with the same random weights on the CPU and on the
+    card."""
+    from repro_torch import configs
+    from repro_torch.models import EncDec, Transformer, encdec, init_params
+    cfg = configs.get_reduced(name)
+    if cfg.enc_layers:
+        params = encdec.init_params(cfg, device=torch.device("cpu"), seed=1)
+        return cfg, EncDec(cfg, params), EncDec(cfg, _to(params, dev))
+    params = init_params(cfg, device=torch.device("cpu"), seed=1)
+    return cfg, Transformer(cfg, params), Transformer(cfg, _to(params, dev))
+
+
+def _drive(model, cfg, toks, frames, f32):
+    """The prefill's inputs: tokens (and whisper's frames), or for xlstm in
+    f32 the embedding rows (tests/test_torch_lm.py says why)."""
+    if cfg.enc_layers:
+        return model(toks, frames)
+    if f32:
+        return model(None, embeds=model.embedding["emb"].float()[toks])
+    return model(toks)
+
+
+@pytest.mark.parametrize("name", list(NEW_ARCHS))
+def test_recurrent_and_encdec_on_cuda_equal_cpu(dev, bf16_full_reduction,
+                                                name):
+    """The same weights on the card and on the CPU: the prefill launches K5
+    exactly NEW_ARCHS[name] times (once a local-attention layer; the
+    encoder, decoder self and cross attentions), and its logits equal the
+    CPU's within LOGIT_TOL. xlstm runs in f32 (TF32 off), as its CPU test
+    does: in bf16 its 16 blocks amplify a rounding difference."""
+    cfg, cpu, gpu = _built_pair(name, dev)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 200)))
+    frames = (torch.from_numpy(rng.normal(0, 1, (2, 150, cfg.d_model)).astype(
+        np.float32)).to(torch.bfloat16) if cfg.enc_layers else None)
+    f32 = name == "xlstm-350m"
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        launches.reset()
+        got, _ = _drive(gpu, cfg, toks.to(dev),
+                        None if frames is None else frames.to(dev), f32)
+        torch.cuda.synchronize()
+        assert launches.snapshot().get("flash_attn", 0) == NEW_ARCHS[name]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    want, _ = _drive(cpu, cfg, toks, frames, f32)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("name", list(NEW_ARCHS))
+def test_recurrent_and_encdec_decode_matches_forward_on_cuda(
+        dev, bf16_full_reduction, name):
+    """Eight decode steps on the card (recurrent states, ring caches, the
+    encoder's cross K/V) reproduce the card's own prefill logits, with no
+    K5 launch."""
+    from repro_torch import configs
+    from repro_torch.models import build
+    cfg = configs.get_reduced(name)
+    model = build(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8))).to(dev)
+    f32 = name == "xlstm-350m"
+    if cfg.enc_layers:
+        frames = torch.from_numpy(rng.normal(0, 1, (2, 150, cfg.d_model))
+                                  .astype(np.float32)).to(dev, torch.bfloat16)
+        full, _ = model(toks, frames)
+        cache = model.init_cache(frames, 32)
+    else:
+        full, _ = _drive(model, cfg, toks, None, f32)
+        cache = model.init_cache(2, 32)
+    emb = model.embedding["emb"].float()[toks] if f32 else None
+    launches.reset()
+    outs = []
+    for t in range(8):
+        if f32:
+            lg, cache = model.decode_step(None, cache,
+                                          embeds=emb[:, t:t + 1])
+        else:
+            lg, cache = model.decode_step(toks[:, t:t + 1], cache)
+        outs.append(lg)
     assert launches.snapshot().get("flash_attn", 0) == 0
+    assert _rel(torch.cat(outs, dim=1), full) <= LOGIT_TOL
 
 
 def test_windowed_attention_on_cuda_launches_k5_with_the_window(dev):

@@ -1,7 +1,9 @@
-"""The port's LM substrate (``models.{blocks,attention,moe,transformer}``,
-``build``) against the JAX package's, on the CPU: the dense archs, mixtral
-(MoE top-2, sliding window), llama4 (MoE top-1 with the shared expert),
-minicpm3 (MLA) and qwen2-vl (M-RoPE, the vision stub's embeds).
+"""The port's LM substrate (``models.{blocks,attention,moe,recurrent,
+transformer}``, ``build``) against the JAX package's, on the CPU: the dense
+archs, mixtral (MoE top-2, sliding window), llama4 (MoE top-1 with the
+shared expert), minicpm3 (MLA), qwen2-vl (M-RoPE, the vision stub's
+embeds), recurrentgemma (RG-LRU and local attention) and xlstm (mLSTM and
+sLSTM); whisper's encoder-decoder is in tests/test_torch_encdec.py.
 
 The same numpy-seeded inputs go through both; the weights are the JAX
 model's own, carried across by ``params_from_numpy`` (biases and norm
@@ -42,6 +44,19 @@ Tolerances, and why:
   * The models' MoE aux loss: AUX_TOL = 1e-3 relative. It is an f32
     function of each MoE layer's input, which the two packages round to
     bf16 apart by an ulp here and there.
+  * xlstm (F32_DRIVEN) is held as a whole model in f32, at LOGIT_TOL. In
+    bf16 its reduced model (16 mLSTM/sLSTM blocks, the JAX init's weights)
+    amplifies rounding: each of the port's blocks, fed the reference's
+    own input, is within one bf16 ulp of the reference's output (at most
+    0.0075 of the largest value; tests/test_torch_recurrent.py holds every
+    block so, in bf16), but chained through the 16 blocks that grows to
+    0.16-0.23 of the largest logit, and the reference's own compiled and
+    op-by-op bf16 forwards differ by 0.10 (measured on PRNGKey(0)'s
+    weights). So the forward, decode and embeds comparisons feed both
+    packages the f32 embedding rows (``embeds``), with every weight first
+    rounded to a bf16 value so that the port's bf16 weights equal the
+    reference's f32 ones: the same function in f32, which matches within
+    1e-5.
 """
 import contextlib
 import dataclasses
@@ -66,8 +81,10 @@ LOGIT_TOL = 0.02
 AUX_TOL = 1e-3
 MOE_LOGIT_TOL = 0.04
 BUILT = ["qwen3-14b", "granite-8b", "qwen1.5-32b", "mixtral-8x7b",
-         "llama4-maverick-400b-a17b", "minicpm3-4b", "qwen2-vl-72b"]
-NOT_BUILT = [n for n in rcfg.ARCH_NAMES if n not in BUILT]
+         "llama4-maverick-400b-a17b", "minicpm3-4b", "qwen2-vl-72b",
+         "recurrentgemma-2b", "xlstm-350m"]
+#: Archs whose whole-model comparison runs in f32 (module docstring).
+F32_DRIVEN = ("xlstm-350m",)
 B, S, MAXLEN = 2, 16, 32
 
 
@@ -281,15 +298,23 @@ def test_attention_matches_jax(name, s, window):
         assert _rel(free, want) > 5 * LOGIT_TOL
 
 
-def test_attention_refuses_non_causal():
-    cfg = tA.AttnConfig(d_model=64, n_heads=4, n_kv=2, head_dim=16)
-    p = _tensors(jax.tree.map(np.asarray, jA.attn_init(
-        jax.random.PRNGKey(0), jA.AttnConfig(**dataclasses.asdict(cfg)))))
-    x = torch.zeros((1, 8, 64), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="M9c"):
-        tA.attention(p, x, dataclasses.replace(cfg, causal=False))
-    with pytest.raises(NotImplementedError, match="M9c"):
-        tA.attention(p, x, dataclasses.replace(cfg, causal=False, window=4))
+@pytest.mark.parametrize("name,s", [("qwen3-14b", 16), ("granite-8b", 200)])
+def test_non_causal_attention_matches_jax(name, s):
+    """``causal=False`` with RoPE, GQA and (qwen3) qk-norm: one K5 call
+    without the mask against the reference's dense ``_sdpa`` with no mask.
+    S = 200 is off the 128-key grid, so a visible padded key would show;
+    the same call with the causal mask is far off."""
+    rng = np.random.default_rng(30 + s)
+    jcfg, tcfg, p, jx, tx = _attn_case(name, rng, s)
+    jcfg = dataclasses.replace(jcfg, causal=False)
+    tcfg = dataclasses.replace(tcfg, causal=False)
+    want = jA.attention(jax.tree.map(jnp.asarray, p), jx, jcfg)
+    got = tA.attention(_tensors(p), tx, tcfg)
+    assert got.dtype == torch.bfloat16 and got.shape == tuple(want.shape)
+    assert _rel(got, want) <= LOGIT_TOL
+    causal = tA.attention(_tensors(p), tx,
+                          dataclasses.replace(tcfg, causal=True))
+    assert _rel(causal, want) > 5 * LOGIT_TOL
 
 
 # ---------------------------------------------------------------------------
@@ -414,13 +439,16 @@ def _perturb(tree, rng):
 @pytest.fixture(scope="module", params=BUILT)
 def pair(request):
     """(arch, JAX model, JAX params, port model, tokens) for one reduced
-    arch that ``build`` takes, with the same weights."""
+    arch that ``build`` takes, with the same weights (for F32_DRIVEN, every
+    weight rounded to a bf16 value first)."""
     name = request.param
     cfg = rcfg.get_reduced(name)
     jm = jbuild(cfg)
     rng = np.random.default_rng(10)
     tree = _perturb(jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0))),
                     rng)
+    if name in F32_DRIVEN:
+        tree = jax.tree.map(_bf16, tree)
     pm = params_from_numpy(pcfg.get_reduced(name), tree, device="cpu")
     toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
     return name, jm, jax.tree.map(jnp.asarray, tree), pm, toks
@@ -430,9 +458,35 @@ def _bf16(a):
     return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
 
 
+def _feed(name, jp, pm, toks):
+    """((tokens, embeds) for JAX, the same for the port): the token ids as
+    served, or for F32_DRIVEN archs the f32 embedding rows (module
+    docstring)."""
+    tt = torch.from_numpy(np.asarray(toks)).long()
+    if name not in F32_DRIVEN:
+        return (jnp.asarray(toks), None), (tt, None)
+    return ((None, jp["embedding"]["emb"][jnp.asarray(toks)]),
+            (None, pm.embedding["emb"].float()[tt]))
+
+
+def _at(x, t):
+    return None if x is None else x[:, t:t + 1]
+
+
+def _leaves(tree, path=()):
+    """(key path, leaf) of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
 def test_params_from_numpy_layout(pair):
-    """Every layer's leaves in place, in bf16 but the norms and the MoE
-    router (f32); layer 1's second-half weights equal the reference's."""
+    """Every layer's leaves in place, in bf16 but the norms, the MoE router,
+    RG-LRU's ``lam`` and the sLSTM's gate matrices (f32); every leaf of
+    every layer equals the reference's (exact where f32, rounded to bf16
+    elsewhere)."""
     name, jm, jp, pm, _ = pair
     cfg = pm.cfg
     assert len(pm.layers) == cfg.n_layers
@@ -440,11 +494,17 @@ def test_params_from_numpy_layout(pair):
     assert pm.final_norm["scale"].dtype == torch.float32
     for kind, lp in zip(pm.kinds, pm.layers):
         assert lp["ln1"]["scale"].dtype == torch.float32
+        if kind in ("mlstm", "slstm"):
+            assert "ln2" not in lp and "mlp" not in lp
+            continue
         assert lp["ln2"]["scale"].dtype == torch.float32
         if kind == "mla":
             assert lp["mla"]["wq_a"]["w"].dtype == torch.bfloat16
             assert lp["mla"]["q_norm"]["scale"].dtype == torch.float32
             assert lp["mla"]["kv_norm"]["scale"].dtype == torch.float32
+        elif kind == "rglru":
+            assert lp["rglru"]["lam"].dtype == torch.float32
+            assert lp["rglru"]["conv"].dtype == torch.bfloat16
         else:
             assert lp["attn"]["wq"]["w"].dtype == torch.bfloat16
             assert ("b" in lp["attn"]["wq"]) == cfg.qkv_bias
@@ -455,29 +515,30 @@ def test_params_from_numpy_layout(pair):
             assert lp["moe"]["wg"].shape == (cfg.n_experts, cfg.d_model,
                                              cfg.d_ff)
             assert ("shared" in lp["moe"]) == cfg.shared_expert
-    # layer 1: group 1 // len(pattern), block 1 % len(pattern)
-    g, i = divmod(1, len(cfg.pattern))
-    jl = jax.tree.map(lambda a: a[g], jp["groups"][f"b{i}"])
-    l1 = pm.layers[1]
-    if pm.kinds[1] == "attn_moe":
-        assert np.array_equal(l1["moe"]["wd"].float().numpy(),
-                              _bf16(jl["moe"]["wd"]))
-        assert np.array_equal(l1["moe"]["router"].numpy(),
-                              np.asarray(jl["moe"]["router"]))
-        if cfg.shared_expert:
-            assert np.array_equal(l1["moe"]["shared"]["wg"].float().numpy(),
-                                  _bf16(jl["moe"]["shared"]["wg"]))
-    else:
-        assert np.array_equal(l1["mlp"]["wd"].float().numpy(),
-                              _bf16(jl["mlp"]["wd"]))
+    n_body = cfg.n_groups * len(cfg.pattern)
+    for li, (kind, lp) in enumerate(zip(pm.kinds, pm.layers)):
+        if li < n_body:
+            g, i = divmod(li, len(cfg.pattern))
+            jl = jax.tree.map(lambda a: a[g], jp["groups"][f"b{i}"])
+        else:
+            jl = jp["tail"][li - n_body]
+        want = dict(_leaves(jl))
+        got = {tuple(n.split(".")): t for n, t in lp.named_parameters()}
+        assert set(got) == set(want)
+        for path, t in got.items():
+            f32 = tT.leaf_is_f32(kind, path)
+            assert t.dtype == (torch.float32 if f32 else torch.bfloat16)
+            w = np.asarray(want[path], np.float32)
+            assert np.array_equal(t.float().numpy(), w if f32 else _bf16(w))
     assert not any(p.requires_grad for p in pm.parameters())
 
 
 def test_forward_matches_jax(pair):
     name, jm, jp, pm, toks = pair
+    (jt, je), (tt, te) = _feed(name, jp, pm, toks)
     with _ref_mode(pm.cfg):
-        want, jaux = jm.forward(jp, jnp.asarray(toks))
-    got, aux = pm(torch.from_numpy(toks).long())
+        want, jaux = jm.forward(jp, jt, embeds=je)
+    got, aux = pm(tt, embeds=te)
     assert got.dtype == torch.float32
     assert got.shape == (B, S, pm.cfg.vocab)
     if pm.cfg.n_experts:
@@ -491,26 +552,86 @@ def test_forward_matches_jax(pair):
 def test_decode_matches_jax(pair):
     """Six decode steps from an empty cache, both packages."""
     name, jm, jp, pm, toks = pair
+    (jt, je), (tt, te) = _feed(name, jp, pm, toks)
     jc, tc = jm.init_cache(B, MAXLEN), pm.init_cache(B, MAXLEN)
     for t in range(6):
         with _ref_mode(pm.cfg):
-            want, jc = jm.decode_step(jp, jnp.asarray(toks[:, t:t + 1]), jc)
-        got, tc = pm.decode_step(torch.from_numpy(toks[:, t:t + 1]).long(), tc)
+            want, jc = jm.decode_step(jp, _at(jt, t), jc, embeds=_at(je, t))
+        got, tc = pm.decode_step(_at(tt, t), tc, embeds=_at(te, t))
         assert got.shape == (B, 1, pm.cfg.vocab)
         assert _rel(got, want) <= _logit_tol(pm.cfg)
     assert tc["pos"] == int(jc["pos"]) == 6
 
 
 def test_embeds_and_positions_match_jax(pair):
-    """The stub-frontend input (embeds) and explicit positions."""
+    """The stub-frontend input (embeds) and explicit positions; f32 embeds
+    for F32_DRIVEN archs."""
     name, jm, jp, pm, toks = pair
     rng = np.random.default_rng(11)
-    je, te = _pair(rng.normal(0, 1, (B, S, pm.cfg.d_model)), "bfloat16")
+    je, te = _pair(rng.normal(0, 1, (B, S, pm.cfg.d_model)),
+                   "float32" if name in F32_DRIVEN else "bfloat16")
     pos = np.broadcast_to(np.arange(S) * 3 + 5, (B, S))
     with _ref_mode(pm.cfg):
         want, _ = jm.forward(jp, None, embeds=je, positions=jnp.asarray(pos))
     got, _ = pm(None, embeds=te, positions=torch.from_numpy(pos.copy()))
     assert _rel(got, want) <= _logit_tol(pm.cfg)
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "xlstm-350m",
+                                  "qwen3-14b", "mixtral-8x7b",
+                                  "whisper-base"])
+def test_params_from_numpy_keeps_the_reference_f32_leaves(name):
+    """The leaves the reference uses in f32 stay f32 through
+    ``params_from_numpy``, exact (weights perturbed, so no leaf is a
+    default): RG-LRU's ``lam``, the sLSTM's six gate matrices, the
+    mLSTM's norm scale, the norms and the MoE router, whisper's ``ln3``
+    and final layernorms. ``wi`` and ``wf`` of the mLSTM and ``wi`` of the
+    GELU MLP, dense weights under the same names, are bf16. ``build``'s
+    random weights take the same dtype at every leaf."""
+    cfg = rcfg.get_reduced(name)
+    rng = np.random.default_rng(40)
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32) + rng.normal(
+        0, 0.01, np.shape(a)).astype(np.float32),
+        jbuild(cfg).init(jax.random.PRNGKey(2)))
+    pm = params_from_numpy(pcfg.get_reduced(name), tree, device="cpu")
+    built = build(pcfg.get_reduced(name), device="cpu", seed=0)
+    params = dict(pm.named_parameters())
+    assert {k: v.dtype for k, v in params.items()} == {
+        k: v.dtype for k, v in built.named_parameters()}
+    f32 = {k for k, v in params.items() if v.dtype == torch.float32}
+    expect = {
+        "recurrentgemma-2b": ["layers.0.rglru.lam", "layers.7.rglru.lam",
+                              "layers.2.ln2.scale", "final_norm.scale"],
+        "xlstm-350m": ["layers.0.core.norm.scale"] + [
+            f"layers.7.core.{g}.w" for g in ("wz", "rz", "wi", "ri", "wf",
+                                             "rf")],
+        "qwen3-14b": ["layers.0.attn.qnorm.scale", "layers.1.ln1.scale"],
+        "mixtral-8x7b": ["layers.0.moe.router"],
+        "whisper-base": ["dec.0.ln3.scale", "dec.1.ln3.bias",
+                         "enc_norm.scale", "enc_norm.bias", "dec_norm.scale",
+                         "enc.1.ln2.bias"]}[name]
+    assert set(expect) <= f32
+    assert all(k.split(".")[-1] in ("scale", "bias", "lam", "router", "w")
+               for k in f32)
+    bf16 = {"recurrentgemma-2b": ["layers.0.rglru.wi.w", "layers.0.mlp.wi",
+                                  "layers.0.rglru.conv", "layers.2.mlp.wi"],
+            "xlstm-350m": ["layers.0.core.wi.w", "layers.0.core.wf.w",
+                           "layers.7.core.wo.w", "layers.7.core.ffn_up.w"],
+            "qwen3-14b": ["layers.0.mlp.wg"],
+            "mixtral-8x7b": ["layers.0.moe.wg"],
+            "whisper-base": ["dec.0.mlp.wi", "enc.0.mlp.bi", "dec_pos",
+                             "dec.0.cross.wq.w"]}[name]
+    assert all(params[k].dtype == torch.bfloat16 for k in bf16)
+    if name == "xlstm-350m":
+        assert params["layers.7.core.wi.w"].dtype == torch.float32
+        assert np.array_equal(params["layers.7.core.rf.w"].numpy(),
+                              tree["groups"]["b7"]["core"]["rf"]["w"][0])
+    if name == "recurrentgemma-2b":
+        assert np.array_equal(params["layers.0.rglru.lam"].numpy(),
+                              tree["groups"]["b0"]["rglru"]["lam"][0])
+        # the tail's second block (layers 6, 7 follow two groups of three)
+        assert np.array_equal(params["layers.7.rglru.lam"].numpy(),
+                              tree["tail"][1]["rglru"]["lam"])
 
 
 def test_mrope_three_stream_positions_match_jax():
@@ -586,38 +707,48 @@ def test_decode_matches_forward_prefix():
     assert bool((dec.argmax(-1) == full.argmax(-1)).all())
 
 
-@pytest.mark.parametrize("name", BUILT)
+@pytest.mark.parametrize("name", rcfg.ARCH_NAMES)
 def test_build_on_the_cpu(name):
+    """Every arch builds, with the reference's parameter count (the JAX
+    init's leaves, counted without allocating them) and, for the attention
+    families, ``param_count()`` (which counts the matmul weights and the
+    embedding, not the norm scales and biases; its recurrent and
+    encoder-decoder terms are approximate); the same weights for the same
+    seed; finite logits."""
     cfg = pcfg.get_reduced(name)
     model = build(cfg, device="cpu", seed=3)
     assert model.device == torch.device("cpu")
-    assert len(model.layers) == cfg.n_layers
     n = sum(p.numel() for p in model.parameters())
-    # param_count counts the matmul weights and the embedding, not the
-    # norm scales and biases.
-    extra = sum(p.numel() for name_, p in model.named_parameters()
-                if name_.endswith(".scale") or name_.endswith(".b"))
-    assert n - extra == cfg.param_count()
+    shapes = jax.eval_shape(jbuild(rcfg.get_reduced(name)).init,
+                            jax.random.PRNGKey(0))
+    assert n == sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    if cfg.enc_layers == 0:
+        assert len(model.layers) == cfg.n_layers
+    if set(cfg.pattern) <= {"attn", "attn_moe", "mla"} and not cfg.enc_layers:
+        extra = sum(p.numel() for name_, p in model.named_parameters()
+                    if name_.endswith(".scale") or name_.endswith(".b"))
+        assert n - extra == cfg.param_count()
     again = build(cfg, device="cpu", seed=3)
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
                                                   again.parameters()))
-    lg, _ = model(torch.zeros((1, 4), dtype=torch.long))
-    assert bool(torch.isfinite(lg).all())
+    toks = torch.zeros((1, 8), dtype=torch.long)
+    if cfg.enc_layers:
+        lg, _ = model(toks, torch.zeros((1, 10, cfg.d_model),
+                                        dtype=torch.bfloat16))
+    else:
+        lg, _ = model(toks)
+    assert lg.shape == (1, 8, cfg.vocab) and bool(torch.isfinite(lg).all())
 
 
-@pytest.mark.parametrize("name", NOT_BUILT)
-def test_build_refuses_the_other_archs(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 M9c"):
-        build(pcfg.get_reduced(name), device="cpu")
-
-
-def test_block_kinds_not_ported_raise():
+def test_unknown_block_kind_raises():
     cfg = pcfg.get_reduced("qwen3-14b")
-    for kind in ("rglru", "mlstm", "slstm"):
-        with pytest.raises(NotImplementedError, match="M9c"):
-            tT.block_init(torch.Generator(), kind, cfg)
-    with pytest.raises(ValueError):
-        tT.block_init(torch.Generator(), "conv", cfg)
+    for fn in (lambda: tT.block_init(torch.Generator(), "conv", cfg),
+               lambda: tT.block_cache_init("conv", cfg, 1, 8),
+               lambda: tT.check_kind("conv")):
+        with pytest.raises(ValueError):
+            fn()
+    for kind in tT.KINDS:
+        tT.check_kind(kind)
 
 
 def test_build_defaults_to_cuda():
