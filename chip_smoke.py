@@ -111,7 +111,27 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      mask; encoder layer 0's attention and decoder layer 0's cross
      attention against their plain versions; 16 decode steps); each decode
      within LM_DECODE_TOL of the forward's logits, and each prefill and
-     decode a token beside its bound, with K5's share and the idle share.
+     decode a token beside its bound, with K5's share and the idle share;
+  11. the training path through ``repro_torch.distributed.steps``:
+     (a) recurrentgemma-2b whole at its published widths with f32 weights
+     from a seed (the reference's param dtype), built with remat as
+     ``launch.train`` builds it, ``make_train_step`` and AdamW as
+     ``launch.train`` makes them, B = 2 x S = 2048 from
+     the bigram sampler: one gradient of every leaf held finite and
+     nonzero, then 4 steps with the launch counts set to 0 just before and
+     read just after (K5 exactly 0 times: training runs the reference's
+     attention functions under autograd), loss, ce and the grad norm
+     finite at every step, the step time beside its bound (6 x params x
+     tokens plus the attention's operations / 989 TFLOP/s; the weight and
+     state bytes / 3.35 TB/s), the peak memory, the idle share and the top
+     device ops; then ``make_prefill`` on the trained weights cast to bf16
+     as serving holds them (K5 exactly 8 times, as phase 10), and K5 in
+     its first attention layer at those shapes against its plain version;
+     (b)
+     ``repro_torch.launch.train.main`` end to end, xlstm-350m ``--full``:
+     4 steps with a checkpoint at the end, then 6, which must resume from
+     step 4 with exactly the (params, opt_state) run 1 saved, train on with
+     finite losses and commit step 6 (the checkpoints are deleted after).
 It then prints the ``kernels`` JSON line (K5 bf16's numbers are phase 8's:
 its launches in the prefill and its time at one layer's shapes, with those
 of the phase-5/6 entry point under ``entry_point``, and the in-model calls
@@ -128,6 +148,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1346,7 +1367,7 @@ def _lm_flops(cfg, b: int, s: int) -> float:
             + 4.0 * cfg.hd * cfg.n_heads * b * pairs * cfg.n_layers)
 
 
-def _profile(fn, label: str, top: int = 6) -> dict:
+def _profile(fn, label: str, top: int = 6, tag: str = "lm") -> dict:
     """One traced run of ``fn`` (torch.profiler, CPU and CUDA): its wall
     time, the device's busy time (the kernels' self time, summed) and the
     kernels that take most of it."""
@@ -1367,9 +1388,9 @@ def _profile(fn, label: str, top: int = 6) -> dict:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if busy <= 0:
-        print(f"[lm] profile {label}: the trace shows no device time")
+        print(f"[{tag}] profile {label}: the trace shows no device time")
         return {"wall_ms": wall, "busy_ms": None}
-    print(f"[lm] profile {label}: wall {wall:.3f} ms, device busy "
+    print(f"[{tag}] profile {label}: wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}); "
           + "; ".join(f"{ms:.3f} ms x{n} {k[:60]}" for ms, n, k in rows[:top]))
     # Kernel names cut to 80 characters: templated PyTorch kernels' names
@@ -2361,6 +2382,266 @@ def drive_phase10(dev, err: dict) -> dict:
     return out
 
 
+# -- phase 11: the training path --------------------------------------------------
+
+# recurrentgemma-2b (src/repro/configs/archs.py:119) whole at its published
+# widths, f32 weights, grads and two f32 moments: 16 bytes x 2.50 G = 40 GB,
+# the largest whole model of configs that fits one card so (minicpm3-4b
+# would need 65 GB before any activation). B x S from the bigram sampler;
+# B is cut to 1 only where the peak passes TRAIN_PEAK_GB.
+TRAIN_ARCH = "recurrentgemma-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+TRAIN_PEAK_GB = 75.0
+TRAIN_LR = 3e-3                 # launch.train's default --lr
+# Phase 11b: launch.train's default arch at --full, run twice into one
+# checkpoint directory under build/ (gitignored), deleted after.
+LAUNCH_TRAIN = ["--arch", "xlstm-350m", "--full", "--batch", "8", "--seq",
+                "128", "--ckpt-every", "100", "--log-every", "1"]
+
+
+def _train_flops(cfg, n_params: int, b: int, s: int) -> float:
+    """A train step's operations: 6 a weight a token (forward 2, backward
+    4; the embedding counted once, as the tied head's product; remat's
+    recompute not counted), and the attention's 12 * hd a visible (query,
+    key) pair a head a layer (forward 4 * hd, backward 8 * hd)."""
+    n_attn = sum(k in ("attn", "attn_moe") for k in
+                 list(cfg.pattern) * cfg.n_groups + list(cfg.pattern_tail))
+    return (6.0 * n_params * b * s + 12.0 * cfg.hd * cfg.n_heads * b
+            * _visible_pairs(s, cfg.window) * n_attn)
+
+
+def drive_train(dev, err: dict) -> dict:
+    """Phase 11a. Fails on a gradient leaf that is not finite or is 0, a
+    K5 launch inside the train steps, a loss, ce or grad norm that is not
+    finite, a peak past TRAIN_PEAK_GB, a prefill of the trained weights
+    that launches K5 other than once an attention layer, or K5 in that
+    prefill's first attention layer off its plain version."""
+    import gc
+    import torch
+    from repro_torch import configs, optim
+    from repro_torch._tree import flatten_with_paths
+    from repro_torch.data import BigramSampler, LMDataConfig
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.flash_attn import flash_mha
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as B
+    from repro_torch.models import build
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = configs.get(TRAIN_ARCH)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    torch.cuda.init()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev, seed=SEED, remat=True,
+                  weight_dtype=torch.float32)
+    opt = optim.init(model.params())
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[train] {_card_line()}")
+    print(f"[train] {TRAIN_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {cfg.n_kv} KV, window {cfg.window}, vocab "
+          f"{cfg.vocab}): {n_params} f32 weights and two f32 moments, "
+          f"{16 * n_params / 1e9:.3f} GB with the gradients, random from seed "
+          f"{SEED} in {time.perf_counter() - t0:.2f} s")
+    data = BigramSampler(LMDataConfig(vocab=cfg.vocab, seq_len=s, seed=SEED))
+    stream = data.stream(b, start_seed=1)
+    batches = [{"tokens": torch.from_numpy(t).to(dev),
+                "labels": torch.from_numpy(l).to(dev)}
+               for t, l in (next(stream) for _ in range(TRAIN_STEPS))]
+
+    # One gradient of every leaf, on the first batch.
+    loss, ce, grads = steps.loss_and_grads(cfg, model, batches[0])
+    norms = torch.stack([g.float().norm() for g in grads]).cpu()
+    names = ["/".join(p) for p, _ in flatten_with_paths(model.params())]
+    bad = [n for n, v in zip(names, norms.tolist())
+           if not math.isfinite(v) or v == 0.0]
+    del grads
+    if bad or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"{TRAIN_ARCH}: loss {float(loss)}; gradient "
+                             f"leaves not finite or 0: {bad[:8]}")
+    print(f"[train] {TRAIN_ARCH} gradient on batch 1 (B={b} S={s}): loss "
+          f"{float(loss):.4f}, ce {float(ce):.4f}; all {len(names)} leaves "
+          f"finite and nonzero (smallest norm {float(norms.min()):.3e} at "
+          f"{names[int(norms.argmin())]})")
+
+    ocfg = optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
+                             total_steps=TRAIN_STEPS)
+    train_step = steps.make_train_step(cfg, ocfg, device=dev)
+    times, metrics, prof = [], [], None
+    launches.reset()
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if i == len(batches) - 1:         # the last step, traced
+            box = {}
+
+            def traced():
+                box["out"] = train_step(model, opt, batch)
+            prof = _profile(traced, f"{TRAIN_ARCH} train step {i + 1}",
+                            top=8, tag="train")
+            model, opt, m = box.pop("out")
+        else:
+            model, opt, m = train_step(model, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        m = {k: float(v) for k, v in m.items()}
+        metrics.append(m)
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{TRAIN_ARCH} step {i + 1}: {m}")
+        print(f"[train] {TRAIN_ARCH} step {i + 1}: loss {m['loss']:.4f} ce "
+              f"{m['ce']:.4f} grad norm {m['grad_norm']:.4f} lr "
+              f"{m['lr']:.3e}; {times[-1]:.1f} ms"
+              + (" (traced)" if i == len(batches) - 1 else ""))
+    counts = launches.snapshot()
+    if counts.get("flash_attn", 0) != 0:
+        raise AssertionError(f"the train steps launched {counts}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    if peak > TRAIN_PEAK_GB:
+        raise AssertionError(f"peak {peak:.2f} GB > {TRAIN_PEAK_GB} GB: cut "
+                             f"TRAIN_BATCH to 1")
+    step_ms = sum(times[1:-1]) / len(times[1:-1])
+    flops = _train_flops(cfg, n_params, b, s)
+    state_bytes = 16 * n_params
+    bound = max(flops / BF16_OPS_PER_S, state_bytes / HBM_BYTES_PER_S) * 1e3
+    busy = prof.get("busy_ms")
+    idle = None if busy is None else 1 - busy / prof["wall_ms"]
+    print(f"[train] {_card_line()}")
+    print(f"[train] {TRAIN_ARCH} train step B={b} S={s}: {step_ms:.1f} ms "
+          f"(mean of steps 2..{TRAIN_STEPS - 1}; step 1 {times[0]:.1f} ms), "
+          f"launches in the {TRAIN_STEPS} steps {counts or 'none'}; bound "
+          f"{bound:.3f} ms (max of {flops / 1e12:.2f} TFLOP / 989 TFLOP/s = "
+          f"{flops / BF16_OPS_PER_S * 1e3:.3f} ms and {state_bytes / 1e9:.2f}"
+          f" GB of weights, gradients and moments / 3.35 TB/s = "
+          f"{state_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; "
+          f"{bound / step_ms:.4f} of it); {b * s / step_ms * 1e3:.0f} tokens/s;"
+          f" peak memory {peak:.2f} GB; idle share "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}")
+
+    # The trained weights as serving holds them, prefilled through K5.
+    del opt, train_step
+    serving = model.cast(torch.bfloat16)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill = steps.make_prefill(cfg, device=dev)
+    n_k5 = sum(k == "attn" for k in serving.kinds)
+    launches.reset()
+    logits = prefill(serving, {"tokens": batches[0]["tokens"]})
+    torch.cuda.synchronize()
+    pcounts = launches.snapshot()
+    if pcounts != {"flash_attn": n_k5} or n_k5 != LM_PHASE10[TRAIN_ARCH][2]:
+        raise AssertionError(f"the prefill of the trained weights launched "
+                             f"{pcounts}; want flash_attn x {n_k5}")
+    if (logits.shape != (b, s, cfg.vocab)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    ce_served = float(steps.softmax_xent(logits, batches[0]["labels"]))
+    print(f"[train] {TRAIN_ARCH} prefill of the trained weights in bf16 "
+          f"(make_prefill, B={b} S={s}): launches {pcounts}; logits finite; "
+          f"ce on batch 1 {ce_served:.4f} (step 1's f32 training ce "
+          f"{metrics[0]['ce']:.4f})")
+    del logits
+
+    # K5 at this prefill's shapes (B = 2, the window) in its first
+    # attention layer, its input from the trained blocks before it,
+    # against its plain version (after the counted prefill).
+    toks = batches[0]["tokens"]
+    with torch.inference_mode():
+        li = serving.kinds.index("attn")
+        x = B.embed(serving.embedding, toks)
+        for kind, p in zip(serving.kinds[:li], serving.layers[:li]):
+            x, _ = T.block_apply(kind, p, x, cfg, None)
+        lp = serving.layers[li]
+        pos = torch.arange(s, device=dev)[None].expand(b, s)
+        q, k, v = A._qkv(lp["attn"], T._norm(cfg, lp["ln1"], x),
+                         T._attn_cfg(cfg), pos)
+        got = flash_mha(q, k, v, window=cfg.window)
+        want = mha_plain(q, k, v, window=cfg.window)
+    e = _close(got, want, FLASH_TOL["bfloat16"])
+    err["flash_attn_bfloat16"] = max(err["flash_attn_bfloat16"], e)
+    print(f"[train] {TRAIN_ARCH} K5 in the trained block {li} with the "
+          f"window {cfg.window} (q {tuple(q.shape)}, k/v {tuple(k.shape)} "
+          f"bf16): max |err| {e:.3e} against the plain version (tolerance "
+          f"{FLASH_TOL['bfloat16']}); "
+          f"{_where_err(got, want, 'bfloat16', scaled=True)}")
+    del serving, x, q, k, v, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arch=TRAIN_ARCH, batch=b, seq=s, params=n_params,
+                step_ms=step_ms, step_times_ms=times, bound_ms=bound,
+                bound_tflop=flops / 1e12, state_gb=state_bytes / 1e9,
+                peak_gb=peak, idle_share=idle, profile=prof,
+                metrics=metrics, train_k5_launches=counts.get(
+                    "flash_attn", 0),
+                prefill_k5_launches=pcounts["flash_attn"],
+                served_ce=ce_served)
+
+
+def drive_launch_train(dev) -> dict:
+    """Phase 11b. Fails unless run 2 resumes from step 4 with exactly the
+    state run 1 saved (``torch.equal``, every leaf), both runs' losses are
+    finite, and step 6 is committed."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch import ckpt
+    from repro_torch._tree import leaves
+    from repro_torch.launch import train
+    from repro_torch.models import state_to_reference, to_reference
+
+    tmp = ROOT / "build" / "phase11_ckpt"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    print(f"[train] launch.train: {shutil.disk_usage(tmp).free / 1e9:.1f} GB"
+          f" free under {tmp}")
+    argv = LAUNCH_TRAIN + ["--ckpt-dir", str(tmp), "--device", str(dev)]
+    try:
+        t0 = time.perf_counter()
+        r1 = train.main(argv + ["--steps", "4"])
+        t1 = time.perf_counter()
+        cfg = r1["model"].cfg
+        saved = (to_reference(cfg, r1["model"].params()),
+                 state_to_reference(cfg, r1["opt_state"]))
+        del r1["model"], r1["opt_state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        r2 = train.main(argv + ["--steps", "6"])
+        t2 = time.perf_counter()
+        got, want = leaves(r2["restored"]), leaves(saved)
+        same = len(got) == len(want) and all(
+            a.dtype == w.dtype and torch.equal(a, w)
+            for a, w in zip(got, want))
+        losses = r1["losses"] + r2["losses"]
+        ok = (r1["saved_steps"] == [4] and r2["resumed_from"] == 4 and same
+              and len(losses) == 6 and all(math.isfinite(x) for x in losses)
+              and r2["saved_steps"] == [6] and ckpt.latest_step(str(tmp)) == 6)
+        n_bytes = sum(f.stat().st_size for f in tmp.rglob("*") if f.is_file())
+        print(f"[train] launch.train xlstm-350m --full: run 1 steps 1-4 in "
+              f"{t1 - t0:.1f} s, saved {r1['saved_steps']}, stragglers "
+              f"{r1['stragglers']}; run 2 resumed from step "
+              f"{r2['resumed_from']} ({len(want)} leaves equal to run 1's: "
+              f"{same}), steps 5-6 in {t2 - t1:.1f} s, saved "
+              f"{r2['saved_steps']}, stragglers {r2['stragglers']}; losses "
+              f"{[round(x, 4) for x in losses]}; latest committed step "
+              f"{ckpt.latest_step(str(tmp))}, {n_bytes / 1e9:.2f} GB on disk")
+        if not ok:
+            raise AssertionError("phase 11b: launch.train did not resume as "
+                                 "it must")
+        out = dict(run1_s=t1 - t0, run2_s=t2 - t1, losses=losses,
+                   resumed_from=r2["resumed_from"], restored_equal=same,
+                   stragglers=[r1["stragglers"], r2["stragglers"]],
+                   ckpt_gb=n_bytes / 1e9)
+        del r2, saved
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def lm_path(kernels: list, lm: dict, err: dict) -> None:
     """K5 bf16's entry of the kernels line takes its main path's numbers,
     phase 8's prefill (launches, and time at a layer's shapes); its numbers
@@ -2420,7 +2701,14 @@ def main() -> int:
     lm["families"] = drive_lm_families(dev, err)
     lm["families"].update(drive_phase10(dev, err))
     lm["k5_model_shapes"] = shapes
+    train = drive_train(dev, err)
+    train["launch_train"] = drive_launch_train(dev)
     lm_path(kernels, lm, err)
+    k5 = next(k for k in kernels if k["name"] == "flash_attn_bfloat16")
+    k5["paths"][TRAIN_ARCH + " trained"] = {
+        "launches": train["prefill_k5_launches"],
+        "train_step_launches": train["train_k5_launches"]}
+    k5["train"] = train
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,11 @@ s - window < t <= s. The JAX kernel has no window; the reference computes
 windowed attention with the same flash schedule at the XLA level, and K5
 runs it, skipping the key tiles below the window.
 
+Neither has a backward (nor has the JAX kernel): both raise when grad
+mode is on and q, k or v requires grad, on either device, so that K5 can
+never cut a gradient silently. The models train through the reference's
+own attention functions instead (``models.attention``).
+
 ``block_q`` and ``block_k`` are the JAX kernel's tile sizes. They are kept
 for its divisibility checks, which the callers pad for; the CUDA kernel
 chooses its own tiles for the card and masks any ragged edge itself.
@@ -45,6 +50,18 @@ def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
 
 
+def refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raises where autograd would need K5's gradient: grad mode on and q,
+    k or v requiring grad. The CUDA launch writes a fresh output that
+    autograd cannot see through, and the plain version is not the kernel."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash attention (K5) has no backward: call it under "
+            "torch.no_grad() / inference_mode, or on tensors that do not "
+            "require grad")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
                     block_k: int = 128, scale: Optional[float] = None,
@@ -52,6 +69,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (BH, S, d), k/v (BH, T, d), f32 or bf16 -> (BH, S, d) in q's dtype.
     S % block_q == 0 and T % block_k == 0 (``flash_mha`` pads). ``window``
     (causal only): query s sees keys s - window < t <= s."""
+    refuse_grad(q, k, v)
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"q (BH, S, d), k and v (BH, T, d); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -123,6 +141,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     a non-causal call pads only q and hands the kernel the true T, whose
     ragged last key tile it masks itself (T goes to the divisibility check
     as one block)."""
+    refuse_grad(q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q (B, S, H, hd), k and v (B, T, KV, hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

@@ -4,11 +4,19 @@ One parameterized implementation covers MHA/GQA (n_kv <= n_heads), optional
 QKV bias (qwen1.5), optional qk-norm (qwen3), a sliding window (mixtral),
 RoPE / M-RoPE (qwen2-vl), and KV-cache decode with a bf16 or int8 cache (a
 ring buffer for a window). MLA (minicpm3) is a separate path, as in the
-reference. Every prefill runs through the hand-written flash attention
-kernel (K5, ``kernels.flash_attn.flash_mha``) in bf16: causal with the
-window, or without a mask (whisper's encoder, ``causal=False``); decode
-attends over the cache in plain PyTorch, as the reference does outside any
-Pallas kernel.
+reference.
+
+A prefill that needs no gradient runs through the hand-written flash
+attention kernel (K5, ``kernels.flash_attn.flash_mha``) in bf16: causal
+with the window, or without a mask (whisper's encoder, ``causal=False``).
+Where grad mode is on and q, k or v requires grad (training), attention
+runs the reference's own functions under autograd instead, as the
+reference differentiates them (K5 has no backward, in the reference or
+here, and refuses such inputs): the dense ``_sdpa`` with ``_causal_mask``
+up to DENSE_ATTN_MAX_SEQ tokens, the chunked online-softmax
+``_sdpa_q_chunked`` above, and MLA's dense and chunked branches, each at
+the same lengths as the reference. Decode attends over the cache in plain
+PyTorch, as the reference does outside any Pallas kernel.
 
 Shapes: x (B, S, d); q/k/v (B, S, H, hd); cache K/V (B, S_max, n_kv, hd).
 """
@@ -119,26 +127,117 @@ def _sdpa(q, k, v, mask, n_rep: int) -> torch.Tensor:
     return out.reshape(B, S, H * hd)
 
 
+def _causal_mask(S: int, T: int, window: Optional[int],
+                 device=None) -> torch.Tensor:
+    """Additive (S, T) f32 mask; queries at absolute positions T-S..T-1."""
+    qpos = torch.arange(S, device=device)[:, None] + (T - S)
+    kpos = torch.arange(T, device=device)[None, :]
+    ok = kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+#: Above this sequence length the reference replaces the dense (S x S)
+#: score matrix by a scan over query chunks; training takes the same
+#: branch at the same length.
+DENSE_ATTN_MAX_SEQ = 4096
+
+
+def _auto_q_chunk(S: int) -> int:
+    """The reference's query-chunk size for the chunked path."""
+    c = 512
+    while S % c:
+        c //= 2
+    return max(c, 1)
+
+
+def _sdpa_q_chunked(q, k, v, window: Optional[int], n_rep: int,
+                    q_chunk: int, kv_chunk: int = 2048) -> torch.Tensor:
+    """The reference's flash schedule at the framework level: loops over
+    query and kv chunks with online-softmax statistics carried across kv
+    steps, f32 scores and accumulators, every tile visited (as the
+    reference's nested scans). q (B,S,H,hd), k/v (B,T,kv,hd) ->
+    (B,S,H*hd) in q's dtype."""
+    B, S, H, hd = q.shape
+    T, kvh = k.shape[1], k.shape[2]
+    while T % kv_chunk:
+        kv_chunk //= 2
+    nq, nk = S // q_chunk, T // kv_chunk
+    scale = 1.0 / math.sqrt(hd)
+    qc = q.reshape(B, nq, q_chunk, kvh, n_rep, hd)
+    kc = k.reshape(B, nk, kv_chunk, kvh, hd)
+    vc = v.reshape(B, nk, kv_chunk, kvh, hd)
+    ar_q = torch.arange(q_chunk, device=q.device)[:, None]
+    ar_k = torch.arange(kv_chunk, device=q.device)[None, :]
+    outs = []
+    for i in range(nq):
+        qi = qc[:, i].float()                          # (B,Cq,g,r,hd)
+        qpos = i * q_chunk + ar_q
+        stat = (B, kvh, n_rep, q_chunk)
+        m = torch.full(stat, NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros(stat, dtype=torch.float32, device=q.device)
+        acc = torch.zeros((*stat, hd), dtype=torch.float32, device=q.device)
+        for j in range(nk):
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qi,
+                             kc[:, j].float()) * scale
+            kpos = j * kv_chunk + ar_k
+            ok = kpos <= qpos
+            if window is not None:
+                ok &= kpos > qpos - window
+            s = torch.where(ok, s, NEG_INF)
+            m2 = torch.maximum(m, s.amax(dim=-1))
+            # masked tiles: exp(s - m2) would be exp(0) on all-NEG_INF rows
+            pr = torch.where(ok, torch.exp(s - m2[..., None]), 0.0)
+            corr = torch.exp(m - m2)
+            l = corr * l + pr.sum(dim=-1)
+            acc = (acc * corr[..., None]
+                   + torch.einsum("bgrqk,bkgd->bgrqd", pr, vc[:, j].float()))
+            m = m2
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]   # (B,g,r,Cq,hd)
+        out = out.permute(0, 3, 1, 2, 4).to(q.dtype)
+        outs.append(out.reshape(B, q_chunk, H * hd))
+    return torch.cat(outs, dim=1)
+
+
+def needs_grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd must see through an attention on ``ts``: grad mode
+    is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def attention(p: Params, x: torch.Tensor, cfg: AttnConfig,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence (prefill) attention.
+    """Full-sequence (training/prefill) attention.
 
-    The reference's two causal branches (the dense ``_sdpa`` with
-    ``_causal_mask(S, S, window)`` up to 4096 tokens and the chunked flash
-    scan with the same window above) compute one function; here it is one
-    call of K5 on q/k/v in bf16, with the window: a CUDA tensor launches the
-    kernel, a CPU tensor takes its plain version. ``cfg.causal=False`` is
-    the reference's dense ``_sdpa(q, k, v, None, n_rep)`` at any length
-    (its window applies to the causal mask only, so it is ignored): one K5
-    call with ``causal=False``. The output is cast back to x's dtype.
+    Without a gradient to carry, the reference's two causal branches (the
+    dense ``_sdpa`` with ``_causal_mask(S, S, window)`` up to 4096 tokens
+    and the chunked flash scan with the same window above) compute one
+    function: one call of K5 on q/k/v in bf16, with the window (a CUDA
+    tensor launches the kernel, a CPU tensor takes its plain version).
+    ``cfg.causal=False`` is the reference's dense ``_sdpa(q, k, v, None,
+    n_rep)`` at any length (its window applies to the causal mask only, so
+    it is ignored): one K5 call with ``causal=False``. The output is cast
+    back to x's dtype. With a gradient to carry (``needs_grad``), the
+    reference's own branch runs under autograd.
     """
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = _qkv(p, x, cfg, positions)
-    bf16 = torch.bfloat16
-    out = flash_mha(q.to(bf16), k.to(bf16), v.to(bf16), causal=cfg.causal,
-                    window=cfg.window if cfg.causal else None).to(x.dtype)
+    n_rep = cfg.n_heads // cfg.n_kv
+    if not needs_grad(q, k, v):
+        bf16 = torch.bfloat16
+        out = flash_mha(q.to(bf16), k.to(bf16), v.to(bf16),
+                        causal=cfg.causal,
+                        window=cfg.window if cfg.causal else None
+                        ).to(x.dtype)
+    elif cfg.causal and S > DENSE_ATTN_MAX_SEQ:
+        out = _sdpa_q_chunked(q, k, v, cfg.window, n_rep, _auto_q_chunk(S))
+    else:
+        mask = (_causal_mask(S, S, cfg.window, x.device) if cfg.causal
+                else None)
+        out = _sdpa(q, k, v, mask, n_rep)
     return dense(p["wo"], out)
 
 
@@ -254,18 +353,77 @@ def _mla_kv_b(p: Params, c_kv: torch.Tensor, cfg: MLAConfig):
     return torch.split(kv, [cfg.qk_nope_dim, cfg.v_head_dim], -1)
 
 
+def _mla_sdpa(q_nope, q_rope, k_nope, kr, v, scale: float,
+              mask: torch.Tensor) -> torch.Tensor:
+    """The reference's dense MLA score q_nope . k_nope + q_rope . k_rope
+    (f32), softmax, weights cast to v's dtype. kr (B,T,1,rope) is the
+    shared rope key. Returns (B,S,H,vd)."""
+    logits = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
+              + torch.einsum("bshd,btxd->bhst", q_rope.float(), kr.float())
+              ) * scale
+    logits = logits + mask[None, None]
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthd->bshd", w, v)
+
+
+def _mla_sdpa_q_chunked(q_nope, q_rope, k_nope, kr, v, scale: float,
+                        q_chunk: int, kv_chunk: int = 2048,
+                        out_dtype=None) -> torch.Tensor:
+    """The reference's chunked MLA branch: the two-part score formed a
+    tile at a time, online softmax over kv chunks, every tile visited.
+    Returns (B,S,H*vd) in ``out_dtype`` (the reference casts to x's)."""
+    B, S, H, _ = q_nope.shape
+    T, vd = k_nope.shape[1], v.shape[-1]
+    while T % kv_chunk:
+        kv_chunk //= 2
+    nq, nk = S // q_chunk, T // kv_chunk
+    dev = q_nope.device
+    ar_q = torch.arange(q_chunk, device=dev)[:, None]
+    ar_k = torch.arange(kv_chunk, device=dev)[None, :]
+    outs = []
+    for i in range(nq):
+        qs = slice(i * q_chunk, (i + 1) * q_chunk)
+        qn_i, qr_i = q_nope[:, qs].float(), q_rope[:, qs].float()
+        qpos = i * q_chunk + ar_q
+        m = torch.full((B, H, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, q_chunk, vd), dtype=torch.float32,
+                          device=dev)
+        for j in range(nk):
+            ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            s = (torch.einsum("bqhd,bkhd->bhqk", qn_i, k_nope[:, ks].float())
+                 + torch.einsum("bqhd,bkxd->bhqk", qr_i, kr[:, ks].float())
+                 ) * scale
+            ok = j * kv_chunk + ar_k <= qpos
+            s = torch.where(ok, s, NEG_INF)
+            m2 = torch.maximum(m, s.amax(dim=-1))
+            pr = torch.where(ok, torch.exp(s - m2[..., None]), 0.0)
+            corr = torch.exp(m - m2)
+            l = corr * l + pr.sum(dim=-1)
+            acc = (acc * corr[..., None]
+                   + torch.einsum("bhqk,bkhd->bhqd", pr, v[:, ks].float()))
+            m = m2
+        o = acc / torch.clamp_min(l, 1e-30)[..., None]
+        o = o.permute(0, 2, 1, 3).to(out_dtype or v.dtype)   # (B,Cq,H,vd)
+        outs.append(o.reshape(B, q_chunk, H * vd))
+    return torch.cat(outs, dim=1)
+
+
 def mla_attention(p: Params, x: torch.Tensor, cfg: MLAConfig,
                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence (prefill) MLA. The KV latent c_kv (rank kv_lora_rank)
-    plus a shared rope key is all that decode needs to cache.
+    """Full-sequence (training/prefill) MLA. The KV latent c_kv (rank
+    kv_lora_rank) plus a shared rope key is all that decode needs to cache.
 
     The reference's score is q_nope . k_nope + q_rope . k_rope, scaled by
     1/sqrt(qk_nope + qk_rope), in its dense branch and its chunked flash
     scan alike (:357-411). That is one dot product over the concatenated
-    width, so the prefill is one K5 bf16 call, causal, on
-    q = [q_nope | q_rope] and k = [k_nope | k_rope broadcast over the heads]
-    (qk_nope + qk_rope wide), with v zero-padded to that width (the padded
-    columns of the output are exact zeros, and are sliced off).
+    width, so without a gradient to carry the prefill is one K5 bf16 call,
+    causal, on q = [q_nope | q_rope] and k = [k_nope | k_rope broadcast
+    over the heads] (qk_nope + qk_rope wide), with v zero-padded to that
+    width (the padded columns of the output are exact zeros, and are
+    sliced off). With a gradient to carry (``needs_grad``), the
+    reference's dense or chunked branch runs under autograd.
     """
     B, S, _ = x.shape
     H = cfg.n_heads
@@ -275,13 +433,24 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: MLAConfig,
     c_kv, k_rope = _mla_kv_a(p, x, cfg, positions)
     k_nope, v = _mla_kv_b(p, c_kv, cfg)
     qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    scale = 1.0 / math.sqrt(qk)
+    vd = cfg.v_head_dim
+    if needs_grad(q_nope, q_rope, k_nope, k_rope, v):
+        if S > DENSE_ATTN_MAX_SEQ:
+            out = _mla_sdpa_q_chunked(q_nope, q_rope, k_nope, k_rope, v,
+                                      scale, _auto_q_chunk(S),
+                                      out_dtype=x.dtype)
+        else:
+            out = _mla_sdpa(q_nope, q_rope, k_nope, k_rope, v, scale,
+                            _causal_mask(S, S, None, x.device)
+                            ).reshape(B, S, H * vd)
+        return dense(p["wo"], out)
     bf16 = torch.bfloat16
     q = torch.cat([q_nope, q_rope], dim=-1).to(bf16)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, cfg.qk_rope_dim)],
                   dim=-1).to(bf16)
-    vd = cfg.v_head_dim
     vp = torch.nn.functional.pad(v, (0, qk - vd)) if qk > vd else v
-    out = flash_mha(q, k, vp.to(bf16), scale=1.0 / math.sqrt(qk))
+    out = flash_mha(q, k, vp.to(bf16), scale=scale)
     out = out.reshape(B, S, H, qk)[..., :vd].to(x.dtype)
     return dense(p["wo"], out.reshape(B, S, H * vd))
 

@@ -246,9 +246,13 @@ def mlstm_block(p: Params, x: torch.Tensor, cfg: MLSTMConfig
         cum = torch.cumsum(torch.log(torch.clamp_min(fc, 1e-9)), dim=1)
         g = torch.exp(cum)                                    # (B,Q,H)
         total = torch.exp(cum[:, -1])                         # (B,H)
-        # decay ratio D[t,s] = g_t / g_s for s <= t (log space, masked)
+        # decay ratio D[t,s] = g_t / g_s for s <= t (log space, masked).
+        # The mask goes in before the exp: the reference exponentiates the
+        # whole (Q, Q) and masks after, which overflows above the diagonal
+        # once a chunk decays by more than ~88 nats; the forward hides the
+        # inf, its gradient (0 * inf) does not. The values are the same.
         dl = cum[:, :, None, :] - cum[:, None, :, :]          # (B,Q,Q,H)
-        D = torch.where(tri[None, :, :, None], torch.exp(dl), 0.0)
+        D = torch.exp(torch.where(tri[None, :, :, None], dl, -math.inf))
         att = torch.einsum("bthd,bshd->bhts", qc, kc)
         att = att * D.permute(0, 3, 1, 2)                     # (B,H,Q,Q)
         att = att * ic.permute(0, 2, 1)[:, :, None, :]        # weight by i_s

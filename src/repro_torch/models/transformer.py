@@ -3,15 +3,23 @@
 with a sliding window (mixtral) or a shared expert (llama4), MLA
 (minicpm3), the VLM backbone with M-RoPE (qwen2-vl), the RG-LRU hybrid
 with local attention (recurrentgemma) and xLSTM (mLSTM and sLSTM blocks)
-— for serving: the full-sequence prefill and one-token decode.
+— the full-sequence forward (training and prefill) and one-token decode.
 
 The reference scans over groups of layers with stacked parameters; here
 ``Transformer.layers`` is a ``ModuleList`` with one entry a block, in the
 order the scan visits them (group by group, the pattern within a group,
-then the tail). The matmul weights and the embedding are held in bf16 on
-the device (the reference casts its f32 weights to bf16 at every use, so
-the function is the same); the leaves the reference uses in f32 stay f32
-(``leaf_is_f32``).
+then the tail), and ``remat`` checkpoints each pattern group as the
+reference's ``checkpoint`` of its scanned group function does. For serving,
+the matmul weights and the embedding are held in bf16 on the device (the
+reference casts its f32 weights to bf16 at every use, so the function is
+the same); the leaves the reference uses in f32 stay f32 (``leaf_is_f32``).
+Training holds every leaf in f32 (``weight_dtype=torch.float32``), the
+reference's own param dtype, so that AdamW updates the weights the
+reference updates.
+
+``to_reference`` and ``from_reference`` move a tree (the params, or a
+moment of the optimizer) between this layout and the reference's stacked
+one (``groups`` / ``tail``).
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from . import attention as A
@@ -112,10 +121,10 @@ def _norm(cfg: ArchConfig, p, x):
     return (B.rmsnorm if cfg.norm_kind == "rms" else B.layernorm)(p, x)
 
 
-def _mlp_init(gen, cfg: ArchConfig, device):
+def _mlp_init(gen, cfg: ArchConfig, device, dtype=WEIGHT_DTYPE):
     return (B.swiglu_init if cfg.mlp_kind == "swiglu"
             else B.gelu_mlp_init)(gen, cfg.d_model, cfg.d_ff,
-                                  dtype=WEIGHT_DTYPE, device=device)
+                                  dtype=dtype, device=device)
 
 
 def _mlp(cfg: ArchConfig, p, x):
@@ -126,9 +135,10 @@ def _mlp(cfg: ArchConfig, p, x):
 # block init / apply / cache / decode — dispatch on kind
 # ---------------------------------------------------------------------------
 
-def block_init(gen, kind: str, cfg: ArchConfig, device=None) -> Params:
+def block_init(gen, kind: str, cfg: ArchConfig, device=None,
+               weight_dtype=WEIGHT_DTYPE) -> Params:
     check_kind(kind)
-    kw = dict(dtype=WEIGHT_DTYPE, device=device)
+    kw = dict(dtype=weight_dtype, device=device)
     if kind == "mlstm":
         return {"ln1": _norm_init(cfg, device),
                 "core": R.mlstm_init(gen, _mlstm_cfg(cfg), **kw)}
@@ -144,7 +154,7 @@ def block_init(gen, kind: str, cfg: ArchConfig, device=None) -> Params:
     if kind == "attn_moe":
         ffn = {"moe": M.moe_init(gen, _moe_cfg(cfg), **kw)}
     else:
-        ffn = {"mlp": _mlp_init(gen, cfg, device)}
+        ffn = {"mlp": _mlp_init(gen, cfg, device, weight_dtype)}
     return {"ln1": _norm_init(cfg, device), **mixer,
             "ln2": _norm_init(cfg, device), **ffn}
 
@@ -230,8 +240,9 @@ class _Tree(nn.Module):
     """A nested dict of tensors as a module, read with ``p[key]`` and
     ``key in p`` as the blocks read a dict; a dict may hold both tensors and
     sub-dicts (llama4's ``moe``: the stacked experts beside the ``shared``
-    SwiGLU). The tensors are shared (not copied) and frozen: the port serves,
-    it does not train yet."""
+    SwiGLU). The tensors are shared (not copied) and frozen by default, so
+    that serving builds no graph; training turns gradients on with
+    ``requires_grad_(True)`` (``distributed.steps``)."""
 
     def __init__(self, tree: Params):
         super().__init__()
@@ -248,25 +259,32 @@ class _Tree(nn.Module):
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
 
+    def tree(self) -> Params:
+        """The nested dict of the parameters themselves (not copies)."""
+        return {**self._parameters,
+                **{k: m.tree() for k, m in self._modules.items()}}
+
 
 def layer_kinds(cfg: ArchConfig) -> List[str]:
     """The block kinds in the order the reference's scan visits them."""
     return list(cfg.pattern) * cfg.n_groups + list(cfg.pattern_tail)
 
 
-def init_params(cfg: ArchConfig, *, device, seed: int = 0) -> Params:
+def init_params(cfg: ArchConfig, *, device, seed: int = 0,
+                weight_dtype=WEIGHT_DTYPE) -> Params:
     """Random weights on ``device`` as the reference's ``_init`` scales them
     (1/sqrt of the first axis: d_in for a matrix, the expert count for a
     stacked expert weight; 1.0 for the embedding; 0.3 for RG-LRU's conv;
     its ``lam`` is the reference's fixed one), from a ``torch.Generator``
     seeded with ``seed``; drawn f32 one tensor (one expert) at a time and
-    cast to WEIGHT_DTYPE, the leaves of ``leaf_is_f32`` kept f32. The
+    cast to ``weight_dtype``, the leaves of ``leaf_is_f32`` kept f32. The
     numbers differ from the JAX package's for the same seed."""
     gen = torch.Generator(device=device).manual_seed(seed)
     return {"embedding": B.embedding_init(gen, cfg.vocab, cfg.d_model,
-                                          dtype=WEIGHT_DTYPE, device=device),
+                                          dtype=weight_dtype, device=device),
             "final_norm": _norm_init(cfg, device),
-            "layers": [block_init(gen, kind, cfg, device=device)
+            "layers": [block_init(gen, kind, cfg, device=device,
+                                  weight_dtype=weight_dtype)
                        for kind in layer_kinds(cfg)]}
 
 
@@ -275,12 +293,15 @@ class Transformer(nn.Module):
 
     ``params`` is ``{"embedding", "final_norm", "layers": [one dict a
     block]}`` (``init_params``; ``params_from_numpy`` for the reference's
-    pytree). The tensors are used as given, not copied.
+    pytree). The tensors are used as given, not copied. ``remat``
+    checkpoints each pattern group of a forward that carries a gradient.
     """
 
-    def __init__(self, cfg: ArchConfig, params: Params):
+    def __init__(self, cfg: ArchConfig, params: Params, *,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         self.kinds = layer_kinds(cfg)
         if len(params["layers"]) != len(self.kinds):
             raise ValueError(f"{len(params['layers'])} layers of params for "
@@ -295,18 +316,45 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embedding["emb"].device
 
-    # -- full-sequence forward (prefill) --------------------------------------
-    @torch.no_grad()
+    def params(self) -> Params:
+        """The weights in this layout, the tensors themselves: the tree
+        the optimizer updates in place."""
+        return {"embedding": self.embedding.tree(),
+                "final_norm": self.final_norm.tree(),
+                "layers": [p.tree() for p in self.layers]}
+
+    def cast(self, weight_dtype) -> "Transformer":
+        """A copy of the model with its weights in ``weight_dtype`` (a leaf
+        of ``leaf_is_f32`` stays f32), frozen."""
+        return Transformer(self.cfg, _port_tree(self.cfg, self.params(),
+                                                self.device, weight_dtype),
+                           remat=self.remat)
+
+    # -- full-sequence forward (train / prefill) ------------------------------
     def forward(self, tokens: Optional[torch.Tensor],
                 embeds: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (logits (B,S,V) f32, aux loss scalar). ``embeds``
-        overrides the token embedding (stub frontends)."""
+        overrides the token embedding (stub frontends). The model's
+        ``remat`` checkpoints each pattern group when grad mode is on; the
+        tail's blocks are not checkpointed, as in the reference."""
         cfg = self.cfg
+        remat = self.remat and torch.is_grad_enabled()
         x = embeds if embeds is not None else B.embed(self.embedding, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for kind, p in zip(self.kinds, self.layers):
+        n = len(cfg.pattern)
+        n_body = cfg.n_groups * n
+        for g0 in range(0, n_body, n):
+            group = list(zip(self.kinds[g0:g0 + n], self.layers[g0:g0 + n]))
+            if remat:
+                x, a = checkpoint(_group_apply, group, x, cfg, positions,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = _group_apply(group, x, cfg, positions)
+            aux = aux + a
+        for kind, p in zip(self.kinds[n_body:], self.layers[n_body:]):
             x, a = block_apply(kind, p, x, cfg, positions)
             aux = aux + a
         x = _norm(cfg, self.final_norm, x)
@@ -320,7 +368,6 @@ class Transformer(nn.Module):
                 "pos": 0}
 
     # -- one-token decode --------------------------------------------------------
-    @torch.no_grad()
     def decode_step(self, token: Optional[torch.Tensor], cache,
                     embeds: Optional[torch.Tensor] = None,
                     ) -> Tuple[torch.Tensor, Any]:
@@ -337,15 +384,39 @@ class Transformer(nn.Module):
                                               "pos": cache["pos"] + 1}
 
 
+def _group_apply(group, x: torch.Tensor, cfg: ArchConfig,
+                 positions: Optional[torch.Tensor]):
+    """One pattern group's blocks in turn: (x, the group's aux loss)."""
+    aux = _zero(x)
+    for kind, p in group:
+        x, a = block_apply(kind, p, x, cfg, positions)
+        aux = aux + a
+    return x, aux
+
+
+def as_tensor(a) -> torch.Tensor:
+    """A tensor as it is, or a copy of a numpy array as a CPU tensor of its
+    dtype (a bf16 array, as JAX hands it out, by its bytes)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    arr = np.array(a, order="C")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def load_tree(tree, device, kind: Optional[str] = None,
-              path: Tuple[str, ...] = ()):
-    """A nested dict of numpy arrays as tensors on ``device``: f32 where
-    ``leaf_is_f32(kind, path + keys)``, WEIGHT_DTYPE elsewhere."""
+              path: Tuple[str, ...] = (), weight_dtype=WEIGHT_DTYPE):
+    """A nested dict of numpy arrays (through f32) or tensors as new
+    tensors on ``device``: f32 where ``leaf_is_f32(kind, path + keys)``,
+    ``weight_dtype`` elsewhere."""
     if isinstance(tree, dict):
-        return {k: load_tree(v, device, kind, path + (k,))
+        return {k: load_tree(v, device, kind, path + (k,), weight_dtype)
                 for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(
-        device, torch.float32 if leaf_is_f32(kind, path) else WEIGHT_DTYPE)
+    t = (tree.detach() if isinstance(tree, torch.Tensor)
+         else torch.from_numpy(np.array(tree, dtype=np.float32)))
+    return t.to(device, torch.float32 if leaf_is_f32(kind, path)
+                else weight_dtype, copy=True)
 
 
 def unstack(tree, i: int):
@@ -355,19 +426,68 @@ def unstack(tree, i: int):
     return tree[i]
 
 
-def params_from_numpy(cfg: ArchConfig, tree: Params, *,
-                      device="cuda") -> Transformer:
-    """A ``Transformer`` on ``device`` with the weights of the reference's
-    param pytree, given as numpy arrays: ``groups`` is unstacked along axis
-    0 into the layers, then ``tail``. Each leaf is f32 or WEIGHT_DTYPE by
-    ``leaf_is_f32``, from its block kind and key path."""
-    from repro_torch import resolve_device
-    dev = resolve_device(device)
-    kinds = layer_kinds(cfg)
+def stack(trees: List[Params]) -> Params:
+    """The dicts of ``trees`` with every leaf stacked on a new axis 0, on
+    the CPU (the reference's vmapped layout)."""
+    if isinstance(trees[0], dict):
+        return {k: stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack([as_tensor(t).detach().cpu() for t in trees])
+
+
+def to_cpu(tree) -> Params:
+    """A copy of a nested dict of tensors on the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    return as_tensor(tree).detach().to("cpu", copy=True)
+
+
+def _port_tree(cfg: ArchConfig, tree: Params, device,
+               weight_dtype) -> Params:
+    """A tree in this layout with each leaf on ``device``, in f32 or
+    ``weight_dtype`` by ``leaf_is_f32``."""
+    return {"embedding": load_tree(tree["embedding"], device,
+                                   weight_dtype=weight_dtype),
+            "final_norm": load_tree(tree["final_norm"], device,
+                                    path=("final_norm",)),
+            "layers": [load_tree(p, device, kind, weight_dtype=weight_dtype)
+                       for p, kind in zip(tree["layers"], layer_kinds(cfg))]}
+
+
+def from_reference(cfg: ArchConfig, tree: Params) -> Params:
+    """The reference's stacked tree (``groups`` unstacked along axis 0 into
+    the layers, then ``tail``) in this layout, the leaves as they are."""
     blocks = [unstack(tree["groups"], g)[f"b{i}"]
               for g in range(cfg.n_groups) for i in range(len(cfg.pattern))]
     blocks += list(tree.get("tail", []))
-    return Transformer(cfg, {
-        "embedding": load_tree(tree["embedding"], dev),
-        "final_norm": load_tree(tree["final_norm"], dev, path=("final_norm",)),
-        "layers": [load_tree(p, dev, kind) for p, kind in zip(blocks, kinds)]})
+    return {"embedding": tree["embedding"], "final_norm": tree["final_norm"],
+            "layers": blocks}
+
+
+def to_reference(cfg: ArchConfig, tree: Params) -> Params:
+    """A tree in this layout (the params, or a moment) in the reference's
+    stacked layout, as CPU tensors of the leaves' own dtypes: ``groups``
+    (``b{i}``, each leaf stacked over the groups) and ``tail`` where the
+    pattern has one."""
+    n = len(cfg.pattern)
+    layers = tree["layers"]
+    out = {"embedding": to_cpu(tree["embedding"]),
+           "final_norm": to_cpu(tree["final_norm"]),
+           "groups": {f"b{i}": stack(layers[i:cfg.n_groups * n:n])
+                      for i in range(n)}}
+    if cfg.pattern_tail:
+        out["tail"] = [to_cpu(p) for p in layers[cfg.n_groups * n:]]
+    return out
+
+
+def params_from_numpy(cfg: ArchConfig, tree: Params, *, device="cuda",
+                      weight_dtype=WEIGHT_DTYPE,
+                      remat: bool = False) -> Transformer:
+    """A ``Transformer`` on ``device`` with the weights of the reference's
+    param pytree, given as numpy arrays or tensors: ``groups`` is
+    unstacked along axis 0 into the layers, then ``tail``. Each leaf is
+    f32 or ``weight_dtype`` by ``leaf_is_f32``, from its block kind and key
+    path."""
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    return Transformer(cfg, _port_tree(cfg, from_reference(cfg, tree), dev,
+                                       weight_dtype), remat=remat)

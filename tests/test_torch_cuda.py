@@ -963,3 +963,175 @@ def test_windowed_attention_on_cuda_launches_k5_with_the_window(dev):
     got = A.attention(_to(p, dev), x.to(dev), cfg)
     assert launches.snapshot() == {"flash_attn": 1}
     assert _rel(got, A.attention(p, x, cfg)) <= LOGIT_TOL
+
+
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+#: Reduced archs whose train step on the card is held against the CPU's:
+#: dense, MoE, MLA, RG-LRU with local attention, encoder-decoder.
+TRAIN_ARCHS = ["granite-8b", "mixtral-8x7b", "minicpm3-4b",
+               "recurrentgemma-2b", "whisper-base"]
+#: tests/test_torch_train.py's bounds against the reference, here between
+#: the card and the CPU (the same bf16 products, reduced in another order):
+#: loss and ce relative, the grad norm relative, each leaf's gradient
+#: (the worst leaf's ||g_card - g_cpu|| / ||g_cpu||: a lost gradient scores
+#: 1, a reversed one 2; this file run as a script prints the readings, on
+#: an H100 1.0e-4 (mixtral) to 1.22e-2 (recurrentgemma's RG-LRU input
+#: weight)), the params after one AdamW step absolute (2.5 x lr: Adam's
+#: first step is sign-like).
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_GRAD_RTOL = 2e-3, 2e-2, 0.1
+TRAIN_OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+
+
+def _train_batch(cfg, b=2, s=16, seed=0):
+    rng = np.random.default_rng(seed)
+    out = {"labels": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))}
+    if cfg.frontend == "vision_stub":
+        out["embeds"] = torch.from_numpy(rng.normal(
+            0, 1, (b, s, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    else:
+        out["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+    if cfg.enc_layers:
+        out["frames"] = torch.from_numpy(rng.normal(
+            0, 1, (b, 8, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    return out
+
+
+def _train_pair(name, dev):
+    """(cfg, the same f32 weights on the CPU and on the card, a batch); the
+    MoE arch without remat (its card layers take the CPU's routings, one a
+    forward)."""
+    from repro_torch import configs
+    from repro_torch.models import build, params_from_numpy, params_to_numpy
+    cfg = configs.get_reduced(name)
+    remat = not cfg.n_experts
+    cpu = build(cfg, device="cpu", seed=1, remat=remat,
+                weight_dtype=torch.float32)
+    gpu = params_from_numpy(cfg, params_to_numpy(cfg, cpu), device=dev,
+                            remat=remat, weight_dtype=torch.float32)
+    return cfg, cpu, gpu, _train_batch(cfg)
+
+
+def _leaf_grad_errors(cfg, cpu, gpu, batch, dev):
+    """(||g_card - g_cpu|| / ||g_cpu||, path) a leaf of ``params()``, worst
+    first: ``steps.loss_and_grads`` of both models on ``batch``, each card
+    MoE layer routed as the CPU's. A leaf whose CPU gradient is 0 scores 0
+    only if the card's is 0 too."""
+    from repro_torch._tree import flatten_with_paths
+    from repro_torch.data import place
+    from repro_torch.distributed import steps
+    from repro_torch.models import moe as M
+    log = []
+    with M.routing_log(log):
+        want = steps.loss_and_grads(cfg, cpu, batch)[2]
+    pick = None
+    if cfg.n_experts:
+        pick = lambda i: (log[i].expert_ids.to(dev),  # noqa: E731
+                          log[i].keep.to(dev))
+    with M.routing_log([], pick):
+        got = steps.loss_and_grads(cfg, gpu, place(batch, dev))[2]
+    paths = [p for p, _ in flatten_with_paths(cpu.params())]
+    assert len(paths) == len(got) == len(want)
+    errs = []
+    for path, a, b in zip(paths, got, want):
+        d = float((a.double().cpu() - b.double()).norm())
+        n = float(b.double().norm())
+        errs.append((d / n if n else (0.0 if d == 0 else float("inf")),
+                     "/".join(path)))
+    return sorted(errs, reverse=True)
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+def test_train_step_on_cuda_equals_cpu(dev, bf16_full_reduction, name):
+    """The same f32 weights and batch, one train step on the card and one
+    on the CPU: K5 launches 0 times on the card (training runs the
+    reference's attention under autograd), and the loss, ce, grad norm,
+    every leaf's gradient (``_leaf_grad_errors``) and the params agree
+    within the bounds above. Each card MoE layer takes the CPU's experts
+    (``moe.routing_log`` with a pick), so that a router near-tie rounds no
+    token elsewhere."""
+    from repro_torch import optim
+    from repro_torch.distributed import steps
+    from repro_torch.models import moe as M
+    cfg, cpu, gpu, batch = _train_pair(name, dev)
+    launches.reset()
+    worst = _leaf_grad_errors(cfg, cpu, gpu, batch, dev)[0]
+    assert worst[0] <= TRAIN_LEAF_GRAD_RTOL, worst
+    assert launches.snapshot().get("flash_attn", 0) == 0
+    out, log = {}, []
+    for where, model in (("cpu", cpu), ("gpu", gpu)):
+        step = steps.make_train_step(cfg, optim.AdamWConfig(**TRAIN_OCFG),
+                                     device=model.device)
+        pick = None
+        if where == "gpu" and cfg.n_experts:
+            cpu_log = list(log)
+            pick = lambda i: (cpu_log[i].expert_ids.to(dev),  # noqa: E731
+                              cpu_log[i].keep.to(dev))
+        launches.reset()
+        with M.routing_log(log if where == "cpu" else [], pick):
+            model, st, m = step(model, optim.init(model.params()), batch)
+        torch.cuda.synchronize()
+        if where == "gpu":
+            assert launches.snapshot().get("flash_attn", 0) == 0
+        out[where] = model, {k: float(v) for k, v in m.items()}
+    (mc, c), (mg, g) = out["cpu"], out["gpu"]
+    assert all(np.isfinite(v) for v in g.values())
+    for k, tol in (("loss", TRAIN_LOSS_RTOL), ("ce", TRAIN_LOSS_RTOL),
+                   ("grad_norm", TRAIN_GNORM_RTOL)):
+        assert abs(g[k] - c[k]) <= tol * abs(c[k]), (k, g[k], c[k])
+    want = dict(mc.named_parameters())
+    assert set(want) == set(dict(mg.named_parameters()))
+    for name_, b in mg.named_parameters():
+        assert float((want[name_] - b.cpu()).abs().max()) <= (
+            2.5 * TRAIN_OCFG["lr"]), name_
+        assert not b.requires_grad
+
+
+@pytest.mark.parametrize("name", ["granite-8b", "recurrentgemma-2b",
+                                  "whisper-base"])
+def test_make_prefill_still_launches_k5_once_a_layer(dev, name):
+    """``make_prefill`` (inference mode) on weights that were trained:
+    K5 launches once an attention layer (whisper: encoder, self and cross
+    attention), as the serving prefill does."""
+    from repro_torch import configs, optim
+    from repro_torch.distributed import steps
+    from repro_torch.models import build
+    cfg = configs.get_reduced(name)
+    model = build(cfg, device=dev, seed=2, remat=True,
+                  weight_dtype=torch.float32)
+    batch = {k: v.to(dev) for k, v in _train_batch(cfg).items()}
+    model, _, _ = steps.make_train_step(cfg, optim.AdamWConfig(**TRAIN_OCFG),
+                                        device=dev)(
+        model, optim.init(model.params()), batch)
+    want = (cfg.enc_layers + 2 * cfg.n_layers if cfg.enc_layers else
+            sum(k in ("attn", "attn_moe", "mla") for k in model.kinds))
+    launches.reset()
+    logits = steps.make_prefill(cfg, device=dev)(model.cast(torch.bfloat16),
+                                                 batch)
+    torch.cuda.synchronize()
+    assert launches.snapshot() == {"flash_attn": want}
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_flash_mha_refuses_a_cuda_input_that_requires_grad(dev):
+    q = torch.randn(1, 128, 2, 64, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(1, 128, 2, 64, device=dev, dtype=torch.bfloat16)
+    launches.reset()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfa.flash_mha(q.clone().requires_grad_(True), k, k)
+    assert launches.snapshot() == {}
+    with torch.no_grad():
+        tfa.flash_mha(q.clone().requires_grad_(True), k, k)
+    assert launches.snapshot() == {"flash_attn": 1}
+
+
+if __name__ == "__main__":
+    # The readings behind TRAIN_LEAF_GRAD_RTOL, on a CUDA machine:
+    #   PYTHONPATH=src python tests/test_torch_cuda.py
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    for arch in TRAIN_ARCHS:
+        errs = _leaf_grad_errors(*_train_pair(arch, torch.device("cuda")),
+                                 torch.device("cuda"))
+        print(f"{arch}: {len(errs)} leaves, the worst {errs[:3]}")

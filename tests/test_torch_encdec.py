@@ -281,6 +281,26 @@ def test_forward_and_decode_match_jax(whisper):
     assert tc["dec"][0]["self"].length == 6
 
 
+@pytest.mark.parametrize("pos", [32767, 32768, 40000])
+def test_decode_past_the_learned_positions_matches_jax(whisper, pos):
+    """A decode step at ``pos`` >= 32768, past the rows of ``dec_pos``,
+    takes its last row, as the reference's ``dynamic_slice_in_dim``
+    clamps: logits against the reference's step on the same weights and
+    cache, and equal to the port's own step at 32767."""
+    jm, jp, _, pm, toks, (jf, tf) = whisper
+    tok = toks[:, :1]
+    jc = jm.init_cache(jp, jf, MAXLEN)
+    jc = {**jc, "pos": jnp.asarray(pos, jnp.int32)}
+    want, _ = jm.decode_step(jp, jnp.asarray(tok), jc)
+    got, tc = pm.decode_step(torch.from_numpy(tok).long(),
+                             {**pm.init_cache(tf, MAXLEN), "pos": pos})
+    assert tc["pos"] == pos + 1
+    assert _rel(got, want) <= LOGIT_TOL
+    last, _ = pm.decode_step(torch.from_numpy(tok).long(),
+                             {**pm.init_cache(tf, MAXLEN), "pos": 32767})
+    assert torch.equal(got, last)
+
+
 def test_build_whisper_on_the_cpu():
     """``build`` returns an EncDec with the reference's parameter count,
     the same weights for the same seed, and finite logits."""

@@ -52,7 +52,10 @@ def test_every_module_is_listed():
     assert len(MODULES) >= 70
     for m in ("repro_torch.models.transformer", "repro_torch.models.moe",
               "repro_torch.configs.archs",
-              "repro_torch.launch.simulate", "repro_torch.launch.calibrate"):
+              "repro_torch.launch.simulate", "repro_torch.launch.calibrate",
+              "repro_torch.optim", "repro_torch.ckpt", "repro_torch.data",
+              "repro_torch.distributed.ft", "repro_torch.distributed.steps",
+              "repro_torch.launch.train"):
         assert m in MODULES
 
 
@@ -114,6 +117,20 @@ def test_launch_serve_fleet_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--mix", "deepsets-32,jsc-m", "--replicas", "2",
                     "--events", "1", "--train-steps", "0"])
+
+
+def test_training_defaults_to_cuda():
+    _no_cuda()
+    from repro_torch import configs, optim
+    from repro_torch.distributed import steps
+    from repro_torch.launch import train
+    cfg = configs.get_reduced("granite-8b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        steps.make_train_step(cfg, optim.AdamWConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        steps.make_prefill(cfg)
 
 
 def test_models_default_to_cuda():
