@@ -131,7 +131,26 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      ``repro_torch.launch.train.main`` end to end, xlstm-350m ``--full``:
      4 steps with a checkpoint at the end, then 6, which must resume from
      step 4 with exactly the (params, opt_state) run 1 saved, train on with
-     finite losses and commit step 6 (the checkpoints are deleted after).
+     finite losses and commit step 6 (the checkpoints are deleted after);
+  12. the mesh (``repro_torch.launch.mesh``, ``distributed.planner``,
+     ``shardctx``, ``compression``, ``launch.dryrun``) on the card:
+     (a) ``make_host_mesh()`` (one rank: ``("data", "model")`` of shape
+     (1, 1) on a one-rank nccl group); (b) at the end of phase 8, phase 8's
+     qwen3-14b weights placed by ``params_sharding`` (wrapped as DTensors,
+     not copied) and ``make_prefill(mesh=...)`` of the same tokens with the
+     launch counts set to 0 just before and read just after (K5 exactly 40
+     times), its logits against phase 8's (``torch.equal``: a one-rank mesh
+     cuts nothing and every op runs on the same local tensors; else within
+     FLASH_TOL) and its time beside phase 8's; (c) in phase 11a,
+     ``compressed_psum`` over a one-rank ``pod`` group on every gradient
+     leaf of recurrentgemma-2b (each element within half its scale step of
+     its input, the new error equal to the input less q times the scale),
+     timed beside its bound; (d) phase 11b runs with the mesh engaged
+     (``launch.train`` places the weights, moments and batches on it);
+     (e) ``python -m repro_torch.launch.dryrun`` for qwen3-14b
+     ``train_4k`` on ``single`` and mixtral-8x7b ``train_4k`` on
+     ``multi``, two CPU subprocesses started before phase 8 (no card),
+     each record's memory a device and roofline terms printed.
 It then prints the ``kernels`` JSON line (K5 bf16's numbers are phase 8's:
 its launches in the prefill and its time at one layer's shapes, with those
 of the phase-5/6 entry point under ``entry_point``, and the in-model calls
@@ -1595,7 +1614,9 @@ def drive_lm(dev, err: dict) -> dict:
                decode_top1=top1, weight_bytes=w_bytes, init_s=init_s,
                residual_rms=grow, profile_prefill=prof_pre,
                profile_decode=prof_dec)
-    del model, logits, cache, q, k, v, qf, kf, vf, q4, k4, v4
+    del cache, q, k, v, qf, kf, vf, q4, k4, v4
+    out["mesh"] = drive_mesh_prefill(dev, model, cfg, toks, logits, pre_ms)
+    del model, logits
     torch.cuda.empty_cache()
     return out
 
@@ -2458,6 +2479,7 @@ def drive_train(dev, err: dict) -> dict:
     names = ["/".join(p) for p, _ in flatten_with_paths(model.params())]
     bad = [n for n, v in zip(names, norms.tolist())
            if not math.isfinite(v) or v == 0.0]
+    compressed = drive_compression(dev, grads)
     del grads
     if bad or not bool(torch.isfinite(loss)):
         raise AssertionError(f"{TRAIN_ARCH}: loss {float(loss)}; gradient "
@@ -2577,7 +2599,7 @@ def drive_train(dev, err: dict) -> dict:
                 metrics=metrics, train_k5_launches=counts.get(
                     "flash_attn", 0),
                 prefill_k5_launches=pcounts["flash_attn"],
-                served_ce=ce_served)
+                served_ce=ce_served, compression=compressed)
 
 
 def drive_launch_train(dev) -> dict:
@@ -2642,6 +2664,194 @@ def drive_launch_train(dev) -> dict:
     return out
 
 
+# -- phase 12: the mesh -------------------------------------------------------------
+
+# The dry run's two cells (python -m repro_torch.launch.dryrun): a dense
+# arch on the one-pod mesh, and the MoE arch on the two-pod mesh (EP/FSDP
+# over the pod axis). Each runs on the CPU alone, under FakeTensorMode.
+DRYRUN_CELLS = (("qwen3-14b", "train_4k", "single"),
+                ("mixtral-8x7b", "train_4k", "multi"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryruns() -> list:
+    """Phase 12e's subprocesses, started now (they use no card: no CUDA
+    device is visible to them, one thread each) and read by
+    ``finish_dryruns``."""
+    import os
+    out = ROOT / "build" / "phase12_dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        rec, log = (out / f"{mesh}__{arch}__{shape}.{x}" for x in
+                    ("json", "log"))
+        rec.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out", str(rec)]
+        with open(log, "w") as f:
+            p = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                 env=env, cwd=ROOT)
+        procs.append((arch, shape, mesh, rec, log, time.perf_counter(), p))
+    return procs
+
+
+def finish_dryruns(procs: list) -> list:
+    """Phase 12e. Fails if a cell's process fails or runs past
+    DRYRUN_TIMEOUT_S (``main`` stops any still running), or if a record's
+    argument bytes fall short of 90% of a rank's share of the f32 weights
+    and their two f32 moments, 12 bytes a weight over the ranks (the
+    leaves a rank holds whole only add to it)."""
+    from repro_torch.configs import get
+    recs, failed = [], []
+    for arch, shape, mesh, rec, log, t0, p in procs:
+        left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0))
+        try:
+            code = p.wait(timeout=left)
+        except subprocess.TimeoutExpired:
+            code = "timeout"
+        wall = time.perf_counter() - t0
+        if code != 0 or not rec.exists():
+            tail = log.read_text()[-1500:] if log.exists() else ""
+            failed.append(f"{arch} x {shape} x {mesh}: exit {code}\n"
+                          f"{tail}")
+            continue
+        r = json.loads(rec.read_text())
+        m, roof = r["memory_per_device"], r["roofline"]
+        floor = 0.9 * 12 * get(arch).param_count() / r["n_chips"]
+        if m["argument_bytes"] < floor:
+            failed.append(f"{arch} x {shape} x {mesh}: arguments "
+                          f"{m['argument_bytes']} bytes a rank, under "
+                          f"{floor:.0f}")
+        print(f"[mesh] dryrun {arch} x {shape} x {mesh} ({r['n_chips']} "
+              f"fake ranks, torch {r['torch']}, on the host CPU, "
+              f"{wall:.1f} s from start): memory a device: arguments "
+              f"{m['argument_bytes'] / 2**30:.2f} GiB, peak "
+              f"{m['live_bytes'] / 2**30:.2f} GiB (fits 80 GB: "
+              f"{m['fits_hbm_80g']}); per device {r['hlo']['flops_per_device']:.4e}"
+              f" FLOP, {r['hlo']['hbm_bytes_per_device']:.4e} op-boundary "
+              f"bytes, {r['hlo']['collective_bytes_per_device']:.4e} "
+              f"collective bytes; roofline (data-sheet rates: 989 TFLOP/s, "
+              f"3.35 TB/s, NVLink 450 GB/s) compute "
+              f"{roof['compute_s'] * 1e3:.2f} ms, memory "
+              f"{roof['memory_s'] * 1e3:.2f} ms, collective "
+              f"{roof['collective_s'] * 1e3:.2f} ms -> {roof['dominant']};"
+              f" useful-FLOP ratio {roof['useful_flop_ratio']:.3f}")
+        recs.append(dict(arch=arch, shape=shape, mesh=mesh, wall_s=wall,
+                         memory_per_device=m, hlo=r["hlo"],
+                         roofline={k: v for k, v in roof.items()
+                                   if k != "collectives"},
+                         collectives=roof["collectives"]))
+    if failed:
+        raise AssertionError("phase 12e: dry-run cells failed:\n"
+                             + "\n".join(failed))
+    return recs
+
+
+def drive_mesh_prefill(dev, model, cfg, toks, want, plain_ms: float) -> dict:
+    """Phase 12 (a) and (b), on phase 8's model and logits. Fails unless
+    the host mesh is one nccl rank of shape (1, 1), the mesh prefill
+    launches K5 exactly once a layer, and its logits equal phase 8's (or
+    lie within FLASH_TOL of them). The model's weights are DTensors after."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.planner import shard_model
+    from repro_torch.kernels import launches
+    from repro_torch.launch.mesh import axis_sizes, make_host_mesh
+
+    mesh = make_host_mesh(device=dev)
+    shape = tuple(axis_sizes(mesh).items())
+    print(f"[mesh] make_host_mesh(): {mesh.size()} rank, axes "
+          f"{dict(shape)}, backend {dist.get_backend()}")
+    if dist.get_backend() != "nccl" or shape != (("data", 1), ("model", 1)):
+        raise AssertionError(f"phase 12a: host mesh {shape} on "
+                             f"{dist.get_backend()}")
+    before = torch.cuda.memory_allocated(dev)
+    shard_model(model, mesh)
+    grown = torch.cuda.memory_allocated(dev) - before
+    prefill = steps.make_prefill(cfg, mesh=mesh, device=dev)
+    batch = {"tokens": toks}
+    prefill(model, batch)                   # first call: sharding rules
+    torch.cuda.synchronize()
+    launches.reset()
+    got = prefill(model, batch)
+    torch.cuda.synchronize()
+    counts = launches.snapshot()
+    if counts != {"flash_attn": cfg.n_layers}:
+        raise AssertionError(f"phase 12b: the mesh prefill launched {counts};"
+                             f" want flash_attn x {cfg.n_layers}")
+    got = got.full_tensor()
+    same = bool(torch.equal(got, want))
+    diff = 0.0 if same else _close(got, want, FLASH_TOL["bfloat16"])
+    t = _time_ms(lambda: prefill(model, batch), iters=5, warmup=1,
+                 graph=False)
+    print(f"[mesh] {_card_line()}")
+    print(f"[mesh] make_prefill(mesh=...) of {LM_ARCH}, phase 8's weights "
+          f"placed by params_sharding as DTensors ({grown / 1e9:.3f} GB "
+          f"allocated by the placing), B={toks.shape[0]} S={toks.shape[1]}: "
+          f"launches {counts}; logits "
+          + ("equal to phase 8's (torch.equal)" if same else
+             f"within FLASH_TOL of phase 8's (max |diff| {diff:.3e}: the "
+             f"DTensor path rounds differently)")
+          + f"; {t['ms']:.3f} ms a prefill beside phase 8's {plain_ms:.3f} ms"
+          f" (+{t['ms'] - plain_ms:.3f} ms, "
+          f"{(t['ms'] - plain_ms) / cfg.n_layers:.3f} ms a layer of DTensor "
+          f"host cost)")
+    return dict(mesh_shape=dict(shape), backend=dist.get_backend(),
+                launches=counts["flash_attn"], equal=same, max_diff=diff,
+                ms=t["ms"], phase8_ms=plain_ms, placed_bytes=grown)
+
+
+def drive_compression(dev, grads) -> dict:
+    """Phase 12c, on phase 11a's gradients (one a leaf): ``compressed_psum``
+    over a one-rank ``pod`` group, a leaf a call. Fails unless every
+    element of the result lies within half its scale step of the gradient
+    and the new error equals the gradient less q times the scale (as
+    ``compress`` gives them)."""
+    import torch
+    from repro_torch.distributed import compression
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1,), ("pod",), device=dev)
+    group = mesh.get_group("pod")
+    warm = [torch.ones(8, device=dev)]
+    compression.compressed_psum(warm, [torch.zeros(8, device=dev)], group)
+    ms, n_el, worst_step = 0.0, 0, 0.0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for g in grads:
+        err = torch.zeros_like(g, dtype=torch.float32)
+        torch.cuda.synchronize()
+        start.record()
+        (g2,), (e2,) = compression.compressed_psum([g], [err], group)
+        end.record()
+        torch.cuda.synchronize()
+        ms += start.elapsed_time(end)
+        q, s, e_ref = compression.compress(g, err)
+        off = float((g2.float() - g.float()).abs().max() / s)
+        if off > 0.5 or not torch.equal(e2, e_ref):
+            raise AssertionError(f"phase 12c: compressed_psum off its input "
+                                 f"by {off} scale steps, or its error is not "
+                                 f"g - q*s")
+        worst_step = max(worst_step, off)
+        n_el += g.numel()
+        del err, g2, e2, q, e_ref
+    # read the gradient and the carried error, write the mean and the new
+    # error (f32 each), as one pass would
+    nbytes = 16 * n_el
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[mesh] {_card_line()}")
+    print(f"[mesh] compressed_psum over a one-rank pod group on {len(grads)} "
+          f"gradient leaves of {TRAIN_ARCH} ({n_el} f32 elements): every "
+          f"element within {worst_step:.3f} of a scale step of its input "
+          f"(limit 0.5), the new error equal to g - q*s; {ms:.3f} ms in all "
+          f"(a leaf a call), bound {bound:.3f} ms ({nbytes / 1e9:.2f} GB "
+          f"read and written / 3.35 TB/s; {bound / ms:.4f} of it)")
+    return dict(leaves=len(grads), elements=n_el, ms=ms, bound_ms=bound,
+                worst_scale_steps=worst_step)
+
+
 def lm_path(kernels: list, lm: dict, err: dict) -> None:
     """K5 bf16's entry of the kernels line takes its main path's numbers,
     phase 8's prefill (launches, and time at a layer's shapes); its numbers
@@ -2697,18 +2907,37 @@ def main() -> int:
     kernels = time_kernels(dev, runs, err, paths)
     shapes = time_flash_models(dev)
     check_model(dev)
+    dryruns = start_dryruns()
+    try:
+        return _phases_8_to_12(dev, err, kernels, shapes, dryruns)
+    finally:
+        for *_, p in dryruns:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _phases_8_to_12(dev, err: dict, kernels: list, shapes: dict,
+                    dryruns: list) -> int:
+    import torch
     lm = drive_lm(dev, err)
     lm["families"] = drive_lm_families(dev, err)
     lm["families"].update(drive_phase10(dev, err))
     lm["k5_model_shapes"] = shapes
     train = drive_train(dev, err)
     train["launch_train"] = drive_launch_train(dev)
+    mesh = lm.pop("mesh")
+    mesh["compression"] = train.pop("compression")
+    mesh["dryrun"] = finish_dryruns(dryruns)
     lm_path(kernels, lm, err)
     k5 = next(k for k in kernels if k["name"] == "flash_attn_bfloat16")
     k5["paths"][TRAIN_ARCH + " trained"] = {
         "launches": train["prefill_k5_launches"],
         "train_step_launches": train["train_k5_launches"]}
+    k5["paths"][LM_ARCH + " mesh prefill"] = {"launches": mesh["launches"],
+                                              "ms": mesh["ms"]}
     k5["train"] = train
+    k5["mesh"] = mesh
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

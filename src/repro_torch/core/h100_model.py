@@ -62,6 +62,11 @@ from repro_torch.quant import QuantizedMLP, quantize_mlp
 PEAK_BF16_FLOPS: float = 989e12        #: bf16 tensor cores, data sheet
 PEAK_INT8_OPS: float = 1979e12         #: int8 tensor cores, data sheet
 HBM_BW: float = 3.35e12                #: bytes/s, data sheet
+HBM_BYTES: int = 80 * 10**9            #: device memory, data sheet (80 GB)
+#: NVLink 4 between two H100 SXM cards, one direction: the data sheet's
+#: 900 GB/s is both directions of 18 links. A one-card machine cannot
+#: measure it; the dry run's collective term divides by it.
+NVLINK_BW: float = 450e9
 SMEM_BUDGET: int = _build.MAX_SMEM_BYTES   #: one block's shared memory, sm_90
 MAX_CHAIN_LAYERS: int = MAX_LAYERS     #: the longest chain K2 takes
 

@@ -123,12 +123,15 @@ def place(tree, device: torch.device):
 
 class Prefetcher:
     """Background-thread prefetch of host batches, optionally placing them
-    on ``device`` (overlaps host data work with device compute)."""
+    on ``device`` (overlaps host data work with device compute) and then on
+    a mesh with ``sharding`` (a ``launch.mesh.NamedSharding``: each tensor
+    becomes a DTensor, in the consumer's thread)."""
 
     def __init__(self, it: Iterator, *, depth: int = 2,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, sharding=None):
         self._it = it
         self._device = None if device is None else torch.device(device)
+        self._sharding = sharding
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._done = object()
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -149,7 +152,11 @@ class Prefetcher:
         item = self._q.get()
         if item is self._done:
             raise StopIteration
-        return item
+        if self._sharding is None:
+            return item
+        from repro_torch._tree import tree_map
+        from repro_torch.distributed.planner import shard_tensor
+        return tree_map(lambda t: shard_tensor(t, self._sharding), item)
 
 
 __all__ = ["JetConfig", "jet_batch", "jet_stream", "LMDataConfig",

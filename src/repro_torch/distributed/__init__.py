@@ -1,3 +1,4 @@
-"""The distribution layer, one device so far: ``ft`` (step watchdog) and
-``steps`` (the train, prefill and decode step builders). The mesh's
-modules (sharding context, planner, pipeline, compression) come with it."""
+"""The distribution layer: ``ft`` (step watchdog), ``steps`` (the train,
+prefill and decode step builders, on one device or a mesh), ``planner`` and
+``shardctx`` (the mesh's shardings, on DTensor), ``compression`` (int8 +
+error-feedback all-reduce) and ``pipeline`` (GPipe over a mesh axis)."""

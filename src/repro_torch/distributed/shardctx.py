@@ -1,0 +1,465 @@
+"""Sharding hints for model internals: the JAX package's
+``src/repro/distributed/shardctx.py`` on DTensor.
+
+The planner (``distributed/planner.py``) pins parameter and boundary
+activation shardings, but tensors *inside* a block (attention heads, MoE
+dispatch) are invisible to it. Step builders enter ``sharding_hints``
+around the model body; model code calls ``constrain_*`` helpers, which
+redistribute a DTensor argument to the reference's spec while a context is
+active and return the argument unchanged otherwise (a plain tensor, or no
+context), as the reference's helpers are no-ops outside the context.
+``*_spec`` gives each helper's spec for a shape (or None where the
+reference leaves the tensor alone).
+
+The port's model code calls ``constrain_heads`` and ``moe_group_split``
+(which reads ``tp_size``). ``active``, ``constrain_seq_q``,
+``constrain_replicated_kv``, ``constrain_experts``, ``constrain_axes`` and
+``constrain_moe_tokens`` are kept as the reference's counterparts, whose
+specs ``tests/test_torch_planner.py`` holds to the reference's: the
+attention and the MoE that would call them run on local tensors instead
+(below), in the same layouts.
+
+The head constraint is the Megatron-TP rule: q/k/v shard over the TP axis on
+the head dim. Head counts that don't divide the axis shard unevenly (DTensor
+cuts as ``torch.chunk`` does, where GSPMD pads).
+
+Ops that have no DTensor sharding rule, or whose own rule is slow or
+moves more than the reference's layout, run on local tensors here, each
+named with the collectives it adds (the dry run counts them):
+  * ``matmul``: every weight product of the models, Megatron/ZeRO-3 style:
+    the all-gather of the weight over dp, the sequence all-gather before a
+    column-parallel product, the partial sum after a row-parallel one.
+  * ``embed``: the vocab-parallel lookup: the table's all-gather over dp,
+    the rows' partial sum over tp.
+  * ``heads_local``: K5 (``flash_mha``) takes raw pointers. q/k/v are
+    redistributed to heads over tp (when the query and KV head counts both
+    divide it) and batch over dp (when the batch divides it), else
+    replicated; the kernel runs on the local heads and the result is
+    wrapped back. Under sequence-parallel hints that is one all-to-all of
+    q (S-sharded to head-sharded) and a slice of k/v a layer.
+  * ``seq_local``: the reference's dense attention (``_sdpa``, MLA's
+    dense score) in the layout of its sequence-parallel hints, each rank on
+    its own query rows against the whole k/v: the all-gather of k/v a
+    layer (and the reduce-scatter of their gradient).
+  * ``batch_local``: a function of batch rows (the RG-LRU, mLSTM and sLSTM
+    blocks, the MoE layer's dispatch groups) runs on each rank's rows with
+    the weights all-gathered (their gradient reduce-scattered back): one
+    all-gather a weight a call, and the activation's redistribution to and
+    from batch-over-dp.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.launch.mesh import P, axis_names, axis_sizes
+
+_STATE: List[Tuple[object, str, Tuple[str, ...]]] = []
+
+
+@contextlib.contextmanager
+def sharding_hints(mesh, *, tp_axis: str = "model",
+                   dp_axes: Tuple[str, ...] = ("pod", "data")):
+    """Activate sharding hints while a step function runs."""
+    if mesh is None or tp_axis not in axis_names(mesh):
+        yield
+        return
+    _STATE.append((mesh, tp_axis,
+                   tuple(a for a in dp_axes if a in axis_names(mesh))))
+    try:
+        yield
+    finally:
+        _STATE.pop()
+
+
+def active() -> bool:
+    return bool(_STATE)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _constrain(x, spec: Optional[P]):
+    if spec is None or not is_dtensor(x):
+        return x
+    from .planner import placements
+    mesh = _STATE[-1][0]
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def _size(a) -> int:
+    return axis_sizes(_STATE[-1][0])[a]
+
+
+def heads_spec(shape) -> Optional[P]:
+    """(B, S, H, hd): batch over dp, heads over tp. None out of context,
+    for decode-shaped inputs (S == 1; cache layout rules there), and for
+    single-head tensors."""
+    if not _STATE or len(shape) != 4 or shape[1] <= 1 or shape[2] <= 1:
+        return None
+    _, tp, dp = _STATE[-1]
+    if _size(tp) <= 1:
+        return None
+    return P(dp, None, tp, None)
+
+
+def constrain_heads(x):
+    return _constrain(x, heads_spec(tuple(x.shape)))
+
+
+def seq_q_spec(shape) -> Optional[P]:
+    """(B, S, H, hd) query: batch over dp, SEQUENCE over tp — sequence-
+    parallel dense attention; k/v full-sequence (``constrain_replicated_kv``)."""
+    if not _STATE or len(shape) != 4 or shape[1] <= 1:
+        return None
+    _, tp, dp = _STATE[-1]
+    if _size(tp) <= 1 or shape[1] % _size(tp) != 0:
+        return None
+    return P(dp, tp, None, None)
+
+
+def constrain_seq_q(x):
+    return _constrain(x, seq_q_spec(tuple(x.shape)))
+
+
+def replicated_kv_spec(shape) -> Optional[P]:
+    """(B, T, KV, hd) keys/values for seq-parallel attention: batch over dp,
+    everything else replicated."""
+    if not _STATE or len(shape) != 4 or shape[1] <= 1:
+        return None
+    _, _, dp = _STATE[-1]
+    return P(dp, None, None, None)
+
+
+def constrain_replicated_kv(x):
+    return _constrain(x, replicated_kv_spec(tuple(x.shape)))
+
+
+def tp_size() -> int:
+    if not _STATE:
+        return 1
+    _, tp, _ = _STATE[-1]
+    return _size(tp)
+
+
+def moe_group_split(S: int) -> int:
+    """Split factor turning seq shards into device-local dispatch groups:
+    under sequence parallelism, (G, S, d) -> (G*tp, S/tp, d) is a
+    zero-communication relabeling that makes the dispatch LOCAL. It changes
+    the groups, and so the capacity, of the routing."""
+    tpn = tp_size()
+    return tpn if (tpn > 1 and S % tpn == 0) else 1
+
+
+def experts_spec(shape, expert_axis: int) -> Optional[P]:
+    """MoE dispatched tokens, E >= tp: experts over tp, local groups over
+    dp."""
+    if not _STATE:
+        return None
+    _, tp, dp = _STATE[-1]
+    tpn = _size(tp)
+    if tpn <= 1 or shape[expert_axis] % tpn != 0:
+        return None
+    spec = [None] * len(shape)
+    spec[expert_axis] = tp
+    if expert_axis == 0 and len(shape) >= 2:
+        dpn = 1
+        for a in dp:
+            dpn *= _size(a)
+        if dpn > 1 and shape[1] % dpn == 0:
+            spec[1] = dp
+    elif expert_axis != 0:
+        spec[0] = dp
+    return P(*spec)
+
+
+def constrain_experts(x, expert_axis: int):
+    return _constrain(x, experts_spec(tuple(x.shape), expert_axis))
+
+
+def axes_spec(shape, tp_dims=(), dp_dims=()) -> Optional[P]:
+    """Generic: pin listed dims to tp / dp axes (uneven sharding allowed)."""
+    if not _STATE:
+        return None
+    _, tp, dp = _STATE[-1]
+    if _size(tp) <= 1:
+        return None
+    spec = [None] * len(shape)
+    for d in tp_dims:
+        if shape[d] > 1:
+            spec[d] = tp
+    for d in dp_dims:
+        if dp and shape[d] > 1:
+            spec[d] = dp
+    return P(*spec)
+
+
+def constrain_axes(x, tp_dims=(), dp_dims=()):
+    return _constrain(x, axes_spec(tuple(x.shape), tp_dims, dp_dims))
+
+
+def moe_tokens_spec(shape, token_axis: int = 1) -> Optional[P]:
+    """MoE dispatched tokens, E < tp: the device-local group dim over
+    dp+tp (expert compute is data parallelism over token slots)."""
+    if not _STATE:
+        return None
+    _, tp, dp = _STATE[-1]
+    n = _size(tp)
+    for a in dp:
+        n *= _size(a)
+    if n <= 1 or shape[token_axis] % n != 0:
+        return None
+    spec = [None] * len(shape)
+    spec[token_axis] = (*dp, tp)
+    return P(*spec)
+
+
+def constrain_moe_tokens(x, token_axis: int = 1):
+    return _constrain(x, moe_tokens_spec(tuple(x.shape), token_axis))
+
+
+# ---------------------------------------------------------------------------
+# ops computed on local tensors, with their placements and their gradients'
+# stated: where DTensor has no rule, or its own choice is slow or costly
+# ---------------------------------------------------------------------------
+
+def matmul(x, w):
+    """``x @ w`` (x (..., K), w (K, N)); on DTensors, in the layout the
+    reference's SPMD partitioner reaches, computed on local tensors: w is
+    gathered over the dp axes (ZeRO-3's just-in-time gather) and x's rows
+    stay split over dp; on tp, w's own split decides — its output dim split
+    (column-parallel) takes x whole over tp (the sequence all-gather) and
+    gives y split on its last dim; its contraction dim split (row-parallel)
+    takes x's last dim split alike and gives y as a partial sum over tp.
+    Each rank multiplies its local blocks; the gradients' placements are
+    stated (w's a partial sum over the mesh dims that split x's rows, x's
+    one over the dims that split w's output). DTensor's own ``mm``
+    strategy search was too slow for the dry run on the (2, 16, 16) mesh,
+    and its choice moved more collective bytes than this layout. Plain
+    tensors multiply as they are."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = w.device_mesh
+    _, dp = _roles(mesh)
+    xl, wl = x.ndim - 1, w.ndim - 1
+    xpl, wpl, ypl = list(x.placements), list(w.placements), []
+    xgrad, wgrad = [], []
+    for i, a in enumerate(axis_names(mesh)):
+        wp = wpl[i]
+        if a in dp and isinstance(wp, Shard):
+            wp = wpl[i] = Replicate()
+        col = isinstance(wp, Shard) and wp.dim == wl
+        row = isinstance(wp, Shard) and wp.dim == wl - 1
+        xp = xpl[i]
+        if col or xp.is_partial() or (isinstance(xp, Shard) and xp.dim == xl
+                                      and not row):
+            xp = Replicate()
+        if row:
+            xp = Shard(xl)
+        xpl[i] = xp
+        if row:
+            ypl.append(Partial())
+        elif col:
+            ypl.append(Shard(xl))
+        else:
+            ypl.append(xp)
+        xgrad.append(Partial() if col else xp)
+        wgrad.append(Partial() if isinstance(xp, Shard) and xp.dim < xl
+                     else wp)
+    x = x.redistribute(mesh, xpl)
+    w = w.redistribute(mesh, wpl)
+    y = (x.to_local(grad_placements=xgrad)
+         @ w.to_local(grad_placements=wgrad))
+    return _wrap(y, x, ypl)
+
+
+def embed(table, tokens):
+    """``table[tokens]``; on DTensors, the vocab-parallel lookup computed on
+    local tensors: the table gathered over the dp axes (ZeRO-3), the
+    tokens' rows left split over dp, and on tp each rank looking up the
+    tokens its vocab rows hold (0 for the rest), the rows coming out a
+    partial sum over tp. DTensor's own rule for this gather and its
+    backward refused the multi-pod mesh's (Shard(0), Shard(0)) tokens and
+    a vocab-sharded table (torch 2.11)."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    _, dp = _roles(mesh)
+    names = axis_names(mesh)
+    if not is_dtensor(tokens):
+        tokens = _wrap(tokens, table, [Replicate()] * mesh.ndim)
+    tpl, wpl, ypl, wgrad = list(tokens.placements), [], [], []
+    V = table.shape[0]
+    off = 0
+    for i, a in enumerate(names):
+        wp = table.placements[i]
+        vocab = isinstance(wp, Shard) and wp.dim == 0 and a not in dp
+        if vocab and isinstance(tpl[i], Shard):
+            tpl[i] = Replicate()
+        wpl.append(wp if vocab else Replicate())
+        ypl.append(Partial() if vocab else tpl[i])
+        wgrad.append(wp if vocab else (Partial() if isinstance(tpl[i], Shard)
+                                       else Replicate()))
+        if vocab:
+            off += min(mesh.get_local_rank(i) * -(-V // mesh.size(i)), V)
+    tok = tokens.redistribute(mesh, tpl).to_local()
+    w = table.redistribute(mesh, wpl).to_local(grad_placements=wgrad)
+    idx = tok.long() - off
+    hit = (idx >= 0) & (idx < w.shape[0])
+    rows = w[idx.clamp(0, w.shape[0] - 1)] * hit[..., None].to(w.dtype)
+    return _wrap(rows, table, ypl)
+
+
+def unflatten(y, dim: int, sizes: Tuple[int, ...]):
+    """``y.unflatten(dim, sizes)``. DTensor cannot split a dim that is cut
+    over a mesh dim unevenly in its first new factor (40 heads over a
+    16-way tp: 2.5 heads a rank, where GSPMD pads): that cut moves to the
+    sequence dim (1) where it divides it, else is gathered."""
+    if is_dtensor(y):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = y.device_mesh
+        pl = list(y.placements)
+        for i, p in enumerate(pl):
+            n = mesh.size(i)
+            if isinstance(p, Shard) and p.dim == dim and sizes[0] % n:
+                pl[i] = (Shard(1) if dim != 1 and y.shape[1] % n == 0
+                         and Shard(1) not in pl else Replicate())
+        if pl != list(y.placements):
+            y = y.redistribute(mesh, pl)
+    return y.unflatten(dim, sizes)
+
+
+def _roles(mesh) -> Tuple[str, Tuple[str, ...]]:
+    """(tp axis, dp axes) of the active context, else the defaults'."""
+    if _STATE and _STATE[-1][0] is mesh:
+        return _STATE[-1][1], _STATE[-1][2]
+    names = axis_names(mesh)
+    return "model", tuple(a for a in ("pod", "data") if a in names)
+
+
+def _batch_placements(mesh, n_batch: int, dp: Sequence[str],
+                      extra: Optional[Tuple[str, int]] = None) -> list:
+    """Shard(0) on every dp axis when their product divides ``n_batch``,
+    ``Shard(dim)`` on ``extra = (axis, dim)``, Replicate elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    sizes = axis_sizes(mesh)
+    dpn = 1
+    for a in dp:
+        dpn *= sizes[a]
+    out = []
+    for a in axis_names(mesh):
+        if a in dp and n_batch % dpn == 0:
+            out.append(Shard(0))
+        elif extra is not None and a == extra[0]:
+            out.append(Shard(extra[1]))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _wrap(local: torch.Tensor, like, placements):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, placements,
+                              run_check=False)
+
+
+def heads_local(fn: Callable, q, k, v, **kw):
+    """``fn(q, k, v, **kw) -> (B, S, H*hd)`` (``flash_mha``) on DTensor
+    q (B,S,H,hd) and k/v (B,T,KV,hd): heads over tp where H and KV both
+    divide it, batch over dp where B does, the rest replicated."""
+    mesh = q.device_mesh
+    tp, dp = _roles(mesh)
+    sizes = axis_sizes(mesh)
+    H, KV = q.shape[2], k.shape[2]
+    heads = (tp in sizes and H % sizes[tp] == 0 and KV % sizes[tp] == 0)
+    pl = _batch_placements(mesh, q.shape[0], dp,
+                           (tp, 2) if heads else None)
+    out = fn(*(t.redistribute(mesh, pl).to_local() for t in (q, k, v)),
+             **kw)
+    # (B, S, H*hd): the local heads are one contiguous block of dim 2
+    return _wrap(out, q, pl)
+
+
+def seq_local(fn: Callable, qs: Sequence, kvs: Sequence):
+    """``fn(*qs_local, *kvs_local, q0) -> (B, S_local, ...)``: dense
+    attention on each rank's query rows, in the layout of the reference's
+    sequence-parallel hints (``constrain_seq_q`` for each of ``qs``,
+    (B, S, ·, ·), and ``constrain_replicated_kv`` for each of ``kvs``);
+    ``q0`` is the rank's first query row, for the causal mask. The
+    gradient of k/v is a partial sum over the ranks that split the
+    queries. DTensor's own einsum strategy search for these 5-D products
+    was too slow for the dry run on the (2, 16, 16) mesh."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    q = qs[0]
+    mesh = q.device_mesh
+    tp, dp = _roles(mesh)
+    sizes = axis_sizes(mesh)
+    S = q.shape[1]
+    seq = tp in sizes and sizes[tp] > 1 and S % sizes[tp] == 0
+    pl = _batch_placements(mesh, q.shape[0], dp, (tp, 1) if seq else None)
+    kv_pl = [p if not (isinstance(p, Shard) and p.dim == 1) else Replicate()
+             for p in pl]
+    kv_grad = [Partial() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in pl]
+    q0 = 0
+    if seq:
+        i = axis_names(mesh).index(tp)
+        q0 = mesh.get_local_rank(i) * (S // sizes[tp])
+    out = fn(*(t.redistribute(mesh, pl).to_local() for t in qs),
+             *(t.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+               for t in kvs), q0)
+    return _wrap(out, q, pl)
+
+
+def batch_local(fn: Callable, x, params, *, seq_axis_dim: Optional[int] = None):
+    """``fn(x_local, params_local) -> (out, *extra)`` on each rank's batch
+    rows: x (B, ...) is redistributed to batch over dp (when dp divides B;
+    also dim ``seq_axis_dim`` over tp when given), every DTensor leaf of
+    ``params`` to replicated (its gradient a partial sum over the mesh dims
+    that split the rows). ``out`` is wrapped back with x's new placements;
+    the ``extra`` outputs are returned local. Returns (out, extra,
+    placements)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from repro_torch._tree import tree_map
+    mesh = x.device_mesh
+    tp, dp = _roles(mesh)
+    extra = (tp, seq_axis_dim) if seq_axis_dim is not None else None
+    pl = _batch_placements(mesh, x.shape[0], dp, extra)
+    grad_pl = [Replicate() if isinstance(p, Replicate) else Partial()
+               for p in pl]
+    rep = [Replicate()] * len(pl)
+
+    def local_weight(w):
+        if not is_dtensor(w):
+            return w
+        return w.redistribute(mesh, rep).to_local(grad_placements=grad_pl)
+
+    if hasattr(params, "tree"):
+        params = params.tree()
+    res = fn(x.redistribute(mesh, pl).to_local(),
+             tree_map(local_weight, params))
+    out, rest = (res[0], res[1:]) if isinstance(res, tuple) else (res, ())
+    return _wrap(out, x, pl), rest, pl
+
+
+def partial_sum(local: torch.Tensor, like, placements):
+    """A DTensor of ``local`` that sums over the mesh dims ``placements``
+    shard (and is replicated over the rest): each rank's share of a sum
+    over the rows ``batch_local`` gave it."""
+    from torch.distributed.tensor import Partial, Replicate
+    return _wrap(local, like, [Replicate() if isinstance(p, Replicate)
+                               else Partial() for p in placements])
+
+
+__all__ = ["sharding_hints", "active", "is_dtensor", "constrain_heads",
+           "constrain_seq_q", "constrain_replicated_kv", "tp_size",
+           "moe_group_split", "constrain_experts", "constrain_axes",
+           "constrain_moe_tokens", "heads_spec", "seq_q_spec",
+           "replicated_kv_spec", "experts_spec", "axes_spec",
+           "moe_tokens_spec", "heads_local", "batch_local", "partial_sum"]

@@ -1,21 +1,24 @@
-"""End-to-end training driver: the JAX package's ``src/repro/launch/train.py``
-on one device.
+"""End-to-end training driver: the JAX package's ``src/repro/launch/train.py``.
 
 Trains any LM ``--arch`` (the reduced config unless ``--full``) on the
-synthetic bigram stream with the substrate engaged: f32 weights and AdamW
-(the reference's param dtype), remat of each pattern group, async atomic
-checkpointing with auto-resume in the reference's format (so a checkpoint
-of either package resumes in the other), and the step watchdog (hang
-detection and straggler counting).
+synthetic bigram stream with the substrate engaged: the host mesh
+(``make_host_mesh``) with the planner's shardings (the weights and AdamW's
+moments DTensors by ``params_sharding``, the batches by ``batch_sharding``
+through the ``Prefetcher``), f32 weights and AdamW (the reference's param
+dtype), remat of each pattern group, async atomic checkpointing with
+auto-resume in the reference's format (full tensors of the DTensor leaves,
+so a checkpoint of either package resumes in the other), and the step
+watchdog (hang detection and straggler counting).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
         --steps 200 --batch 16 --seq 128 --ckpt-dir build/ckpt
 
-It runs on the GPU unless ``--device cpu``. The reference's host mesh,
-``params_sharding`` and ``batch_sharding`` are the identity on one device
-and are left out until the mesh is ported (ROADMAP M10); so is its int8
-gradient compression across pods. Like the reference, it refuses the
-encoder-decoder and stub-frontend archs.
+It runs on the GPU unless ``--device cpu``; the mesh is one rank's (a
+process on its own: ``("data", "model")`` of shape (1, 1)) unless a process
+group of more ranks is running. The reference's docstring promises int8
+gradient compression across pods, which its ``main()`` never calls; this
+driver does not call it either (``distributed.compression``). Like the
+reference, it refuses the encoder-decoder and stub-frontend archs.
 """
 from __future__ import annotations
 
@@ -32,15 +35,29 @@ from repro_torch.configs import ARCH_NAMES, get, get_reduced
 from repro_torch.data import BigramSampler, LMDataConfig, Prefetcher
 from repro_torch.distributed import steps as steps_lib
 from repro_torch.distributed.ft import StepWatchdog, WatchdogConfig
+from repro_torch.distributed.planner import (PlanConfig, params_sharding,
+                                             shard_model, shard_tensor)
+from repro_torch.launch.mesh import axis_sizes, batch_sharding, make_host_mesh
 from repro_torch.models import (build, params_from_numpy, state_from_numpy,
                                 state_to_reference, to_reference)
+from repro_torch._tree import tree_map
 
 
 def _ckpt_tree(cfg, model, opt_state):
     """(params, opt_state) in the reference's layout: a fresh copy on the
-    host, which the checkpointer takes as it is."""
+    host (the full tensor of each DTensor leaf), which the checkpointer
+    takes as it is."""
     return (to_reference(cfg, model.params()),
             state_to_reference(cfg, opt_state))
+
+
+def _state_on_mesh(cfg, state, mesh, plan):
+    """An AdamW state whose moments are put on ``mesh`` as the weights they
+    mirror (``params_sharding``)."""
+    def on(tree):
+        return tree_map(shard_tensor, tree,
+                        params_sharding(tree, mesh, plan, cfg=cfg))
+    return state._replace(mu=on(state.mu), nu=on(state.nu))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -71,15 +88,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if cfg.enc_layers or cfg.frontend != "none":
         raise SystemExit("train.py drives LM archs; use examples/ for "
                          "frontend-stub archs")
+    mesh = make_host_mesh(device=dev)
+    plan = PlanConfig()
     print(f"[train] {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
-          f"vocab={cfg.vocab} on {dev}")
+          f"vocab={cfg.vocab} on {dev}, mesh {axis_sizes(mesh)}")
 
-    model = build(cfg, device=dev, seed=args.seed, remat=True,
-                  weight_dtype=torch.float32)
+    model = shard_model(build(cfg, device=dev, seed=args.seed, remat=True,
+                              weight_dtype=torch.float32), mesh, plan)
     ocfg = optim.AdamWConfig(lr=args.lr, warmup_steps=20,
                              total_steps=args.steps)
-    train_step = steps_lib.make_train_step(cfg, ocfg, accum=args.accum,
-                                           device=dev)
+    train_step = steps_lib.make_train_step(cfg, ocfg, mesh=mesh, plan=plan,
+                                           accum=args.accum, device=dev)
     opt_state = optim.init(model.params())
     start_step, restored = 0, None
 
@@ -92,9 +111,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             restored, start_step, _ = ckpt_lib.restore(
                 args.ckpt_dir, _ckpt_tree(cfg, model, opt_state))
             del model, opt_state
-            model = params_from_numpy(cfg, restored[0], device=dev,
-                                      weight_dtype=torch.float32, remat=True)
-            opt_state = state_from_numpy(cfg, restored[1], device=dev)
+            model = shard_model(params_from_numpy(
+                cfg, restored[0], device=dev, weight_dtype=torch.float32,
+                remat=True), mesh, plan)
+            opt_state = _state_on_mesh(cfg, state_from_numpy(
+                cfg, restored[1], device=dev), mesh, plan)
             print(f"[train] resumed from step {start_step}")
 
     data = BigramSampler(LMDataConfig(vocab=cfg.vocab, seq_len=args.seq,
@@ -103,7 +124,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         ({"tokens": t, "labels": l} for t, l in itertools.islice(
             data.stream(args.batch, start_seed=start_step + 1),
             max(0, args.steps - start_step))),
-        device=dev)
+        device=dev, sharding=batch_sharding(mesh))
 
     wd = StepWatchdog(WatchdogConfig(min_timeout_s=600.0))
     t0 = time.time()

@@ -18,6 +18,12 @@ up to DENSE_ATTN_MAX_SEQ tokens, the chunked online-softmax
 the same lengths as the reference. Decode attends over the cache in plain
 PyTorch, as the reference does outside any Pallas kernel.
 
+On a mesh (DTensor activations under ``shardctx.sharding_hints``) the
+reference's hints stand where it puts them: sequence-parallel q with
+replicated k/v on the dense branch, heads over tp on the chunked one. K5
+runs on each rank's heads and batch rows (``flash``); its causal mask needs
+the whole sequence, so q is never sequence-sharded there.
+
 Shapes: x (B, S, d); q/k/v (B, S, H, hd); cache K/V (B, S_max, n_kv, hd).
 """
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import shardctx
 from repro_torch.kernels.flash_attn import flash_mha
 from .blocks import Params, apply_rope, dense, dense_init, rmsnorm, rmsnorm_init
 
@@ -96,9 +103,9 @@ def _qkv(p: Params, x: torch.Tensor, cfg: AttnConfig,
     if cfg.mrope_sections is not None and positions.dim() == 2:
         # text-only M-RoPE: all three position streams coincide
         positions = torch.stack([positions] * 3, dim=-1)
-    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-    k = dense(p["wk"], x).reshape(B, S, cfg.n_kv, hd)
-    v = dense(p["wv"], x).reshape(B, S, cfg.n_kv, hd)
+    q = shardctx.unflatten(dense(p["wq"], x), 2, (cfg.n_heads, hd))
+    k = shardctx.unflatten(dense(p["wk"], x), 2, (cfg.n_kv, hd))
+    v = shardctx.unflatten(dense(p["wv"], x), 2, (cfg.n_kv, hd))
     if cfg.qk_norm:
         q = rmsnorm(p["qnorm"], q)
         k = rmsnorm(p["knorm"], k)
@@ -116,7 +123,7 @@ def _sdpa(q, k, v, mask, n_rep: int) -> torch.Tensor:
     are cast to v's dtype before the second product, as the reference."""
     B, S, H, hd = q.shape
     kv = k.shape[2]
-    q = q.reshape(B, S, kv, n_rep, hd)
+    q = shardctx.unflatten(q, 2, (kv, n_rep))
     logits = torch.einsum("bsgrd,btgd->bgrst", q.float(), k.float())
     logits = logits / math.sqrt(hd)
     if mask is not None:
@@ -200,6 +207,14 @@ def _sdpa_q_chunked(q, k, v, window: Optional[int], n_rep: int,
     return torch.cat(outs, dim=1)
 
 
+def flash(q, k, v, **kw) -> torch.Tensor:
+    """``flash_mha`` (K5); on DTensors, on each rank's heads and batch rows
+    (``shardctx.heads_local``: the kernel takes raw pointers)."""
+    if shardctx.is_dtensor(q):
+        return shardctx.heads_local(flash_mha, q, k, v, **kw)
+    return flash_mha(q, k, v, **kw)
+
+
 def needs_grad(*ts: torch.Tensor) -> bool:
     """Whether autograd must see through an attention on ``ts``: grad mode
     is on and one of them requires grad."""
@@ -228,17 +243,32 @@ def attention(p: Params, x: torch.Tensor, cfg: AttnConfig,
     n_rep = cfg.n_heads // cfg.n_kv
     if not needs_grad(q, k, v):
         bf16 = torch.bfloat16
-        out = flash_mha(q.to(bf16), k.to(bf16), v.to(bf16),
-                        causal=cfg.causal,
-                        window=cfg.window if cfg.causal else None
-                        ).to(x.dtype)
+        out = flash(q.to(bf16), k.to(bf16), v.to(bf16), causal=cfg.causal,
+                    window=cfg.window if cfg.causal else None).to(x.dtype)
     elif cfg.causal and S > DENSE_ATTN_MAX_SEQ:
+        # long prefill: memory-bounded q-chunk loop; heads TP-sharded
+        q, k, v = (shardctx.constrain_heads(t) for t in (q, k, v))
         out = _sdpa_q_chunked(q, k, v, cfg.window, n_rep, _auto_q_chunk(S))
     else:
+        # dense path: sequence-parallel attention (scores q-seq-sharded)
         mask = (_causal_mask(S, S, cfg.window, x.device) if cfg.causal
                 else None)
-        out = _sdpa(q, k, v, mask, n_rep)
+        out = dense_sdpa(q, k, v, mask, n_rep)
     return dense(p["wo"], out)
+
+
+def dense_sdpa(q, k, v, mask, n_rep: int) -> torch.Tensor:
+    """``_sdpa`` with the reference's sequence-parallel hints: on DTensors
+    each rank's query rows (and their rows of the (S, T) mask) against the
+    whole k/v (``shardctx.seq_local``)."""
+    if not shardctx.is_dtensor(q):
+        return _sdpa(q, k, v, mask, n_rep)
+
+    def local(ql, kl, vl, q0):
+        m = None if mask is None else mask[q0:q0 + ql.shape[1]]
+        return _sdpa(ql, kl, vl, m, n_rep)
+
+    return shardctx.seq_local(local, (q,), (k, v))
 
 
 class KVCache(NamedTuple):
@@ -330,7 +360,8 @@ def _mla_q(p: Params, x: torch.Tensor, cfg: MLAConfig,
     """(q_nope, q_rope) (B, S, H, ·), RoPE applied to q_rope."""
     B, S, _ = x.shape
     q = dense(p["wq_b"], rmsnorm(p["q_norm"], dense(p["wq_a"], x)))
-    q = q.reshape(B, S, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q = shardctx.unflatten(q, 2, (cfg.n_heads,
+                                  cfg.qk_nope_dim + cfg.qk_rope_dim))
     q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], -1)
     return q_nope, apply_rope(q_rope, positions, theta=cfg.rope_theta)
 
@@ -349,7 +380,8 @@ def _mla_kv_b(p: Params, c_kv: torch.Tensor, cfg: MLAConfig):
     """(k_nope, v) (B, T, H, ·) from the latent."""
     B, T, _ = c_kv.shape
     kv = dense(p["wkv_b"], rmsnorm(p["kv_norm"], c_kv))
-    kv = kv.reshape(B, T, cfg.n_heads, cfg.qk_nope_dim + cfg.v_head_dim)
+    kv = shardctx.unflatten(kv, 2, (cfg.n_heads,
+                                    cfg.qk_nope_dim + cfg.v_head_dim))
     return torch.split(kv, [cfg.qk_nope_dim, cfg.v_head_dim], -1)
 
 
@@ -437,20 +469,30 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: MLAConfig,
     vd = cfg.v_head_dim
     if needs_grad(q_nope, q_rope, k_nope, k_rope, v):
         if S > DENSE_ATTN_MAX_SEQ:
+            q_nope, q_rope, k_nope, v = (shardctx.constrain_heads(t) for t in
+                                         (q_nope, q_rope, k_nope, v))
             out = _mla_sdpa_q_chunked(q_nope, q_rope, k_nope, k_rope, v,
                                       scale, _auto_q_chunk(S),
                                       out_dtype=x.dtype)
         else:
-            out = _mla_sdpa(q_nope, q_rope, k_nope, k_rope, v, scale,
-                            _causal_mask(S, S, None, x.device)
-                            ).reshape(B, S, H * vd)
+            mask = _causal_mask(S, S, None, x.device)
+
+            def local(qn, qr, kn, kr, vv, q0):
+                return _mla_sdpa(qn, qr, kn, kr, vv, scale,
+                                 mask[q0:q0 + qn.shape[1]])
+
+            out = (shardctx.seq_local(local, (q_nope, q_rope),
+                                      (k_nope, k_rope, v))
+                   if shardctx.is_dtensor(q_nope) else
+                   local(q_nope, q_rope, k_nope, k_rope, v, 0)
+                   ).reshape(B, S, H * vd)
         return dense(p["wo"], out)
     bf16 = torch.bfloat16
     q = torch.cat([q_nope, q_rope], dim=-1).to(bf16)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, cfg.qk_rope_dim)],
                   dim=-1).to(bf16)
     vp = torch.nn.functional.pad(v, (0, qk - vd)) if qk > vd else v
-    out = flash_mha(q, k, vp.to(bf16), scale=scale)
+    out = flash(q, k, vp.to(bf16), scale=scale)
     out = out.reshape(B, S, H, qk)[..., :vd].to(x.dtype)
     return dense(p["wo"], out.reshape(B, S, H * vd))
 

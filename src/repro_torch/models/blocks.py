@@ -9,7 +9,8 @@ One difference: the JAX package keeps f32 weights and casts them to the
 activation dtype at every use; ``models.transformer`` holds the matmul
 weights in bf16 on the device instead, which computes the same function in
 half the memory. The init functions draw f32 one tensor at a time and cast
-to ``dtype``, so that the peak is one tensor's f32 size.
+to ``dtype``, so that the peak is one tensor's f32 size. On a mesh the
+products run in ``shardctx.matmul``'s layout.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import shardctx
 
 Params = Dict[str, Any]
 
@@ -71,7 +74,7 @@ def dense_init(gen, d_in: int, d_out: int, *, bias: bool = False,
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = shardctx.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -85,9 +88,9 @@ def swiglu_init(gen, d: int, d_ff: int, dtype=torch.float32,
 
 
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
-    g = F.silu(x @ p["wg"].to(x.dtype))
-    u = x @ p["wu"].to(x.dtype)
-    return (g * u) @ p["wd"].to(x.dtype)
+    g = F.silu(shardctx.matmul(x, p["wg"].to(x.dtype)))
+    u = shardctx.matmul(x, p["wu"].to(x.dtype))
+    return shardctx.matmul(g * u, p["wd"].to(x.dtype))
 
 
 def gelu_mlp_init(gen, d: int, d_ff: int, dtype=torch.float32,
@@ -100,9 +103,9 @@ def gelu_mlp_init(gen, d: int, d_ff: int, dtype=torch.float32,
 
 def gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     # The reference's GELU is the tanh approximation (its default).
-    h = F.gelu(x @ p["wi"].to(x.dtype) + p["bi"].to(x.dtype),
+    h = F.gelu(shardctx.matmul(x, p["wi"].to(x.dtype)) + p["bi"].to(x.dtype),
                approximate="tanh")
-    return h @ p["wo"].to(x.dtype) + p["bo"].to(x.dtype)
+    return shardctx.matmul(h, p["wo"].to(x.dtype)) + p["bo"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -117,12 +120,12 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.float32,
 
 def embed(p: Params, tokens: torch.Tensor,
           dtype=torch.bfloat16) -> torch.Tensor:
-    return p["emb"].to(dtype)[tokens]
+    return shardctx.embed(p["emb"].to(dtype), tokens)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Tied LM head: logits in f32 for a stable softmax/loss."""
-    return (x @ p["emb"].to(x.dtype).T).float()
+    return shardctx.matmul(x, p["emb"].to(x.dtype).T).float()
 
 
 # ---------------------------------------------------------------------------

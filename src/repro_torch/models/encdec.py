@@ -17,10 +17,11 @@ encoder and decoder layer, as the reference's ``checkpoint`` of its scanned
 layer does. Decode attends over its self cache and the encoder's cached
 K/V in plain PyTorch, as the reference does outside any Pallas kernel.
 
-The reference's ``shardctx.constrain_*`` calls in the cross attention
-(:159-161) are the identity off a mesh and are left out. Its layers are
-stacked on axis 0 and scanned; here ``EncDec.enc`` and ``EncDec.dec`` are
-``ModuleList``s of one entry a layer, in order.
+The cross attention takes the reference's ``shardctx.constrain_*`` hints
+(:159-161) where it runs the reference's ``_sdpa``; on a mesh its K5 call
+runs on each rank's heads (``shardctx.heads_local``). The reference's
+layers are stacked on axis 0 and scanned; here ``EncDec.enc`` and
+``EncDec.dec`` are ``ModuleList``s of one entry a layer, in order.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import shardctx
 from repro_torch.kernels.flash_attn import flash_mha
 from . import attention as A
 from . import blocks as B
@@ -214,17 +216,20 @@ def _cross_attention(p: Params, q_in: torch.Tensor, enc: torch.Tensor,
     """The reference's unmasked ``_sdpa`` of S_dec queries over T_enc keys:
     one K5 bf16 call with ``causal=False``, or the reference's ``_sdpa``
     itself where a gradient is carried (``attention.needs_grad``)."""
-    b, S, _ = q_in.shape
     hd = cfg.hd
     bf16 = torch.bfloat16
-    q = B.dense(p["wq"], q_in).reshape(b, S, cfg.n_heads, hd)
-    k = B.dense(p["wk"], enc).reshape(b, -1, cfg.n_kv, hd)
-    v = B.dense(p["wv"], enc).reshape(b, -1, cfg.n_kv, hd)
+    q = shardctx.unflatten(B.dense(p["wq"], q_in), 2, (cfg.n_heads, hd))
+    k = shardctx.unflatten(B.dense(p["wk"], enc), 2, (cfg.n_kv, hd))
+    v = shardctx.unflatten(B.dense(p["wv"], enc), 2, (cfg.n_kv, hd))
     if A.needs_grad(q, k, v):
-        out = A._sdpa(q, k, v, None, cfg.n_heads // cfg.n_kv)
+        # sequence-parallel cross attention (the self-attention's rule):
+        # scores shard on the decoder-seq dim, encoder K/V replicate
+        out = A.dense_sdpa(q, k, v, None, cfg.n_heads // cfg.n_kv)
     else:
-        out = flash_mha(q.to(bf16), k.to(bf16), v.to(bf16),
-                        causal=False).to(q_in.dtype)
+        q, k, v = (t.to(bf16) for t in (q, k, v))
+        out = (shardctx.heads_local(flash_mha, q, k, v, causal=False)
+               if shardctx.is_dtensor(q) else
+               flash_mha(q, k, v, causal=False)).to(q_in.dtype)
     return B.dense(p["wo"], out)
 
 

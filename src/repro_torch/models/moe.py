@@ -17,8 +17,10 @@ stacked (E, d, f) weights, ``torch.matmul``, as the reference leaves its
 expert einsums to XLA), and the gate-weighted outputs are added back into
 their tokens with ``index_add_``. An expert that received no token is
 skipped (decode), which changes no sum: its one-hot rows are zero in the
-reference. Off a mesh the reference's sharding calls are the identity and
-its sequence split is 1, so there are none here.
+reference. On a mesh the dispatch groups follow the reference's sequence
+split (``moe_forward``); the reference's pins of its dispatched tensors
+(``xin``/``eout``, ``moe.py:102-111``) have no counterpart, because the
+index form builds neither: each rank's groups stay on the rank.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import shardctx
 from .blocks import Params, _init, swiglu, swiglu_init
 
 
@@ -156,23 +159,68 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (G, S, d) -> (out (G, S, d), aux load-balance loss scalar f32).
 
-    The combine weights are the gates rounded to x's dtype, as the
-    reference's ``combine.astype(x.dtype)``; the weighted expert outputs
-    are summed in f32 and rounded to x's dtype once.
+    Under sequence parallelism every seq shard is its own dispatch group,
+    as in the reference (``shardctx.moe_group_split``): (G, S, d) is read
+    as (G*tp, S/tp, d), which changes each group's capacity. On DTensors
+    each rank routes and computes its own groups (``shardctx.batch_local``,
+    the reference's E < tp layout for every E: token-parallel experts, the
+    expert weights all-gathered); the aux loss's two means are partial sums
+    over the ranks.
     """
     G, S, d = x.shape
+    E = cfg.n_experts
+    split = shardctx.moe_group_split(S)
+    if shardctx.is_dtensor(x):
+        out, (routed, prob), pl = shardctx.batch_local(
+            lambda xl, lp: _moe_groups(lp, xl, cfg), x, p,
+            seq_axis_dim=1 if split > 1 else None)
+        routed, prob = (shardctx.partial_sum(t, x, pl)
+                        for t in (routed, prob))
+    else:
+        out, routed, prob = _moe_groups(
+            p, x.reshape(G * split, S // split, d), cfg)
+        out = out.reshape(G, S, d)
+    # load-balance aux loss (Switch/GShard): E * sum_e f_e * P_e, with f_e
+    # the fraction of choices routed to e before capacity
+    n = G * S
+    aux = E * torch.sum((routed / n) * (prob / n))
+    return out, aux
+
+
+def dispatch(r: Routing, x: torch.Tensor, cfg: MoEConfig
+             ) -> Tuple[List[int], torch.Tensor, torch.Tensor]:
+    """The (token, choice) pairs of ``r`` grouped by expert, for x
+    (G, S, d): (the number of kept pairs of each expert, the pairs' tokens
+    in expert order, their combine weights: f32 of the gates rounded to
+    x's dtype). A dropped pair takes the key E and sorts last, past every
+    expert's rows."""
+    G, S, _ = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    r = moe_route(p, x, cfg)
-    if _observer is not None:
-        r = _observer(r)
-    xf = x.reshape(G * S, d)
-    # the kept (token, choice) pairs, grouped by expert (a dropped one takes
-    # the key E and sorts last)
     key = torch.where(r.keep, r.expert_ids, E).reshape(-1)
     order = torch.argsort(key, stable=True)
     counts = torch.bincount(key, minlength=E + 1)[:E].tolist()
     token = torch.arange(G * S, device=x.device).repeat_interleave(K)[order]
     weight = r.gates.reshape(-1)[order].to(x.dtype).float()
+    return counts, token, weight
+
+
+def _moe_groups(p: Params, x: torch.Tensor, cfg: MoEConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The layer on dispatch groups x (G, S, d): (out (G, S, d), the
+    choices routed to each expert (E,) f32, the router's probabilities
+    summed over the tokens (E,)).
+
+    The combine weights are the gates rounded to x's dtype, as the
+    reference's ``combine.astype(x.dtype)``; the weighted expert outputs
+    are summed in f32 and rounded to x's dtype once.
+    """
+    G, S, d = x.shape
+    E = cfg.n_experts
+    r = moe_route(p, x, cfg)
+    if _observer is not None:
+        r = _observer(r)
+    xf = x.reshape(G * S, d)
+    counts, token, weight = dispatch(r, x, cfg)
     out = torch.zeros((G * S, d), dtype=torch.float32, device=x.device)
     start = 0
     for e, n in enumerate(counts):
@@ -188,11 +236,5 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig,
     out = out.to(x.dtype).reshape(G, S, d)
     if cfg.shared_expert:
         out = out + swiglu(p["shared"], x)
-
-    # load-balance aux loss (Switch/GShard): E * sum_e f_e * P_e, with f_e
-    # the fraction of choices routed to e before capacity
-    routed = F.one_hot(r.expert_ids, E).sum(dim=2).float()   # (G,S,E)
-    f_e = routed.mean(dim=(0, 1))
-    p_e = r.probs.mean(dim=(0, 1))
-    aux = E * torch.sum(f_e * p_e)
-    return out, aux
+    routed = F.one_hot(r.expert_ids, E).sum(dim=(0, 1, 2)).float()
+    return out, routed, r.probs.sum(dim=(0, 1))

@@ -31,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import shardctx as S
 from . import attention as A
 from . import blocks as B
 from . import moe as M
@@ -171,6 +172,14 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _rows(block, p, h: torch.Tensor, bcfg):
+    """A recurrent block on h; on a DTensor, on each rank's batch rows
+    (``shardctx.batch_local``: its scans have no DTensor rules)."""
+    if not S.is_dtensor(h):
+        return block(p, h, bcfg)
+    return S.batch_local(lambda hl, pl: block(pl, hl, bcfg), h, p)[0]
+
+
 def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
                 positions: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -178,16 +187,18 @@ def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
     check_kind(kind)
     h = _norm(cfg, p["ln1"], x)
     if kind == "mlstm":
-        return x + R.mlstm_block(p["core"], h, _mlstm_cfg(cfg)), _zero(x)
+        return (x + _rows(R.mlstm_block, p["core"], h, _mlstm_cfg(cfg)),
+                _zero(x))
     if kind == "slstm":
-        return x + R.slstm_block(p["core"], h, _slstm_cfg(cfg)), _zero(x)
+        return (x + _rows(R.slstm_block, p["core"], h, _slstm_cfg(cfg)),
+                _zero(x))
     if kind == "mla":
         # MLA's RoPE takes one position stream: M-RoPE's first (temporal)
         if positions is not None and positions.dim() == 3:
             positions = positions[..., 0]
         x = x + A.mla_attention(p["mla"], h, _mla_cfg(cfg), positions)
     elif kind == "rglru":
-        x = x + R.rglru_block(p["rglru"], h, _rglru_cfg(cfg))
+        x = x + _rows(R.rglru_block, p["rglru"], h, _rglru_cfg(cfg))
     else:
         x = x + A.attention(p["attn"], h, _attn_cfg(cfg), positions)
     out, aux = _ffn(kind, p, _norm(cfg, p["ln2"], x), cfg)
@@ -334,14 +345,21 @@ class Transformer(nn.Module):
     def forward(self, tokens: Optional[torch.Tensor],
                 embeds: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
+                constrain=None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (logits (B,S,V) f32, aux loss scalar). ``embeds``
         overrides the token embedding (stub frontends). The model's
         ``remat`` checkpoints each pattern group when grad mode is on; the
-        tail's blocks are not checkpointed, as in the reference."""
+        tail's blocks are not checkpointed, as in the reference.
+        ``constrain`` (optional, x -> x) redistributes the activations at
+        every group boundary, as the reference's (the mesh's
+        cascade-consistency rule: every inter-layer edge carries the same
+        partitioning)."""
         cfg = self.cfg
         remat = self.remat and torch.is_grad_enabled()
         x = embeds if embeds is not None else B.embed(self.embedding, tokens)
+        if constrain is not None:
+            x = constrain(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         n = len(cfg.pattern)
         n_body = cfg.n_groups * n
@@ -349,10 +367,10 @@ class Transformer(nn.Module):
             group = list(zip(self.kinds[g0:g0 + n], self.layers[g0:g0 + n]))
             if remat:
                 x, a = checkpoint(_group_apply, group, x, cfg, positions,
-                                  use_reentrant=False,
+                                  constrain, use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, a = _group_apply(group, x, cfg, positions)
+                x, a = _group_apply(group, x, cfg, positions, constrain)
             aux = aux + a
         for kind, p in zip(self.kinds[n_body:], self.layers[n_body:]):
             x, a = block_apply(kind, p, x, cfg, positions)
@@ -385,18 +403,24 @@ class Transformer(nn.Module):
 
 
 def _group_apply(group, x: torch.Tensor, cfg: ArchConfig,
-                 positions: Optional[torch.Tensor]):
-    """One pattern group's blocks in turn: (x, the group's aux loss)."""
+                 positions: Optional[torch.Tensor], constrain=None):
+    """One pattern group's blocks in turn, then ``constrain``: (x, the
+    group's aux loss)."""
     aux = _zero(x)
     for kind, p in group:
         x, a = block_apply(kind, p, x, cfg, positions)
         aux = aux + a
+    if constrain is not None:
+        x = constrain(x)
     return x, aux
 
 
 def as_tensor(a) -> torch.Tensor:
-    """A tensor as it is, or a copy of a numpy array as a CPU tensor of its
-    dtype (a bf16 array, as JAX hands it out, by its bytes)."""
+    """A tensor as it is (a DTensor's full tensor), or a copy of a numpy
+    array as a CPU tensor of its dtype (a bf16 array, as JAX hands it out,
+    by its bytes)."""
+    if S.is_dtensor(a):
+        return a.full_tensor()
     if isinstance(a, torch.Tensor):
         return a
     arr = np.array(a, order="C")

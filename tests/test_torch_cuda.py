@@ -1127,6 +1127,70 @@ def test_flash_mha_refuses_a_cuda_input_that_requires_grad(dev):
     assert launches.snapshot() == {"flash_attn": 1}
 
 
+@pytest.mark.parametrize("name", ["qwen3-14b-hd128", "mixtral-8x7b"])
+def test_mesh_prefill_on_one_rank_launches_k5_once_a_layer(dev, name):
+    """``make_prefill(mesh=...)`` on the one-rank nccl host mesh, the
+    weights placed by ``params_sharding``: K5 launches once a layer, and
+    the logits equal the unsharded prefill's (torch.equal: a one-rank mesh
+    cuts nothing, and every op runs on the same local tensors)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.planner import shard_model
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Transformer, init_params
+    cfg = _lm_cfg(name)
+    model = Transformer(cfg, init_params(cfg, device=dev, seed=1))
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 200))).to(dev)}
+    want = steps.make_prefill(cfg, device=dev)(model, batch)
+    mesh = make_host_mesh(device=dev)
+    assert dist.get_backend() == "nccl" and mesh.size() == 1
+    shard_model(model, mesh)
+    launches.reset()
+    got = steps.make_prefill(cfg, mesh=mesh, device=dev)(model, batch)
+    torch.cuda.synchronize()
+    assert launches.snapshot() == {"flash_attn": cfg.n_layers}
+    assert torch.equal(got.full_tensor(), want)
+
+
+def test_compression_on_cuda_equals_cpu(dev):
+    """``compress`` / ``decompress`` on the card equal the CPU's bit for
+    bit, and ``compressed_psum`` over a one-rank nccl ``pod`` group gives
+    q times the scale and the same error."""
+    from repro_torch.distributed import compression
+    from repro_torch.launch.mesh import make_mesh
+    rng = np.random.default_rng(9)
+    g = torch.from_numpy(rng.normal(0, 1e-2, (300, 129)).astype(np.float32))
+    e = torch.from_numpy(rng.normal(0, 1e-4, (300, 129)).astype(np.float32))
+    q, s, ne = compression.compress(g, e)
+    qd, sd, ned = compression.compress(g.to(dev), e.to(dev))
+    assert torch.equal(qd.cpu(), q) and float(sd) == float(s)
+    assert torch.equal(ned.cpu(), ne)
+    assert torch.equal(compression.decompress(qd, sd).cpu(),
+                       compression.decompress(q, s))
+    group = make_mesh((1,), ("pod",), device=dev).get_group("pod")
+    (g2,), (e2,) = compression.compressed_psum([g.to(dev)], [e.to(dev)],
+                                               group)
+    assert torch.equal(g2.cpu(), compression.decompress(q, s))
+    assert torch.equal(e2.cpu(), ne)
+
+
+def test_flash_mha_f32_at_s200_holds_over_repeats(dev):
+    """``test_flash_mha_equals_plain`` (K5 f32, S = 200, GQA) failed once on
+    an H100 (318 of 204,800 values up to 6.5e-5 off): the same inputs 200
+    times over, each output within its 2e-5."""
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.normal(0, 1, (2, 200, 8, 64)).astype(
+        np.float32)).to(dev)
+    kv = torch.from_numpy(rng.normal(0, 1, (2, 2, 200, 2, 64)).astype(
+        np.float32)).to(dev)
+    want = tfa.flash_mha(q.cpu(), kv[0].cpu(), kv[1].cpu(), block_q=64,
+                         block_k=64)
+    for _ in range(200):
+        got = tfa.flash_mha(q, kv[0], kv[1], block_q=64, block_k=64).cpu()
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
 if __name__ == "__main__":
     # The readings behind TRAIN_LEAF_GRAD_RTOL, on a CUDA machine:
     #   PYTHONPATH=src python tests/test_torch_cuda.py

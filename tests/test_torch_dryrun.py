@@ -1,0 +1,183 @@
+"""The port's dry run (``launch.dryrun``) and its op-stream count
+(``launch.hlo_analysis``) against the JAX package's, each in a subprocess
+(the port's fake process group is process-wide; the reference needs its
+host devices set before jax starts).
+
+  * the op counter: a plain matmul's FLOPs are 2MKN, an L-layer loop's
+    2MKN * L (exact; the reference's trip-count test), and one all-reduce's
+    and one all-gather's operand bytes on a 4-rank fake group equal the
+    reference's ``_collective_operand_bytes`` of the same op (exact).
+  * ``run_cell`` of reduced qwen3-14b's train step (B 8 x S 64) on a (2, 2)
+    fake mesh: per-device FLOPs within 5% of the reference's
+    ``analyze_hlo`` of the same cell lowered on a (2, 2) mesh of host
+    devices (the bound the port was asked to meet; both count the same
+    matmuls, remat's recomputation included), its argument bytes equal
+    (exact) to rank 0's shards of the weights, the two Adam moments, the
+    step count and the batch, counted here from the planner's specs, and
+    the record's keys.
+
+In this process: the op counter's live and peak bytes follow the
+tensors' lifetimes, on real and on fake tensors (exact).
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+FLOP_RTOL = 0.05
+S, B = 64, 8
+
+PORT = textwrap.dedent("""
+    import json, sys
+    import torch
+    from repro_torch.configs import ShapeSpec, get_reduced
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import init_group, make_mesh
+    out = {}
+    a, b = torch.randn(64, 32), torch.randn(32, 16)
+    out["mm"] = hlo_analysis.analyze(torch.matmul, a, b)[1].flops
+
+    def loop(x, w, L):
+        for _ in range(L):
+            x = torch.tanh(x @ w)
+        return x
+
+    out["loop"] = hlo_analysis.analyze(loop, torch.randn(8, 16),
+                                       torch.randn(16, 16), 5)[1].flops
+    init_group("fake", world_size=4)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    import torch.distributed._functional_collectives as fc
+    with hlo_analysis.OpCounter() as c:
+        fc.all_reduce(torch.ones(1024), "sum", mesh.get_group("data"))
+        fc.all_gather_tensor(torch.ones(256), 0, mesh.get_group("model"))
+    out["coll"] = c.analysis().collectives
+    out["cell"] = dryrun.run_cell(
+        "qwen3-14b", "t", "single", mesh=mesh, cfg=get_reduced("qwen3-14b"),
+        shape=ShapeSpec("t", %d, %d, "train"))
+
+    # rank 0's argument bytes, from the specs alone
+    from repro_torch._tree import flatten_with_paths
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.planner import params_sharding
+    from repro_torch.models import build
+    cfg, shape = get_reduced("qwen3-14b"), ShapeSpec("t", %d, %d, "train")
+    sizes = {"data": 2, "model": 2}
+
+    def shard_numel(t, spec):
+        n = 1
+        spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+        for dim, e in zip(t.shape, spec):
+            k = 1
+            for a in (e if isinstance(e, tuple) else (e,) if e else ()):
+                k *= sizes[a]
+            n *= -(-dim // k)
+        return n
+
+    params = build(cfg, device="cpu", weight_dtype=torch.float32).params()
+    specs = dict(flatten_with_paths(params_sharding(params, mesh, cfg=cfg)))
+    total = 4                                      # Adam's int32 step
+    for path, t in flatten_with_paths(params):
+        # the weight in its dtype, mu and nu in f32
+        total += shard_numel(t, specs[path].spec) * (t.element_size() + 8)
+    b_sh = steps.batch_shardings(cfg, shape, mesh)
+    for k, v in steps.input_specs(cfg, shape).items():
+        total += shard_numel(v, b_sh[k].spec) * v.element_size()
+    out["arg_bytes"] = total
+    print("RESULT" + json.dumps(out))
+""") % (S, B, S, B)
+
+REF = textwrap.dedent("""
+    import os, json
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import jax
+    jax.devices()
+    from repro.configs import ShapeSpec, get_reduced
+    from repro.launch import dryrun, hlo_analysis
+    from repro.launch.hlo_analysis import Op, _collective_operand_bytes
+    from repro.launch.mesh import make_mesh
+    dryrun.get = get_reduced
+    dryrun.SHAPES_BY_NAME = {"t": ShapeSpec("t", %d, %d, "train")}
+    lowered, _ = dryrun.lower_cell("qwen3-14b", "t",
+                                   make_mesh((2, 2), ("data", "model")))
+    h = hlo_analysis.analyze_hlo(lowered.compile().as_text())
+    groups = "replica_groups={{0,2},{1,3}}"
+    ar = Op("x", "f32[1024]", "all-reduce", [], groups)
+    ag = Op("y", "f32[512]", "all-gather", [], groups)
+    print("RESULT" + json.dumps({
+        "flops": h.flops, "all-reduce": _collective_operand_bytes(ar),
+        "all-gather": _collective_operand_bytes(ag)}))
+""") % (S, B)
+
+
+def _run(script):
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": "src",
+                            "JAX_PLATFORMS": "cpu"})
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    line = next(x for x in r.stdout.splitlines() if x.startswith("RESULT"))
+    return json.loads(line[len("RESULT"):])
+
+
+def test_op_counter_and_dry_run_cell_against_the_reference():
+    port, ref = _run(PORT), _run(REF)
+    assert port["mm"] == 2 * 64 * 32 * 16
+    assert port["loop"] == 2 * 8 * 16 * 16 * 5
+    assert port["coll"]["all-reduce"] == {"count": 1,
+                                          "bytes": ref["all-reduce"]}
+    assert port["coll"]["all-gather"] == {"count": 1,
+                                          "bytes": ref["all-gather"]}
+    rec = port["cell"]
+    flops = rec["hlo"]["flops_per_device"]
+    assert abs(flops - ref["flops"]) <= FLOP_RTOL * ref["flops"], (
+        flops, ref["flops"])
+    assert set(rec) == {"arch", "shape", "mesh", "n_chips", "seq_shard",
+                        "remat", "moment_dtype", "accum", "lower_s",
+                        "run_s", "memory_per_device", "hlo", "roofline",
+                        "torch"}
+    assert rec["n_chips"] == 4
+    mem = rec["memory_per_device"]
+    assert set(mem) == {"argument_bytes", "temp_bytes", "live_bytes",
+                        "fits_hbm_80g"}
+    assert mem["argument_bytes"] == port["arg_bytes"]
+    assert mem["argument_bytes"] < mem["live_bytes"]
+    assert mem["fits_hbm_80g"] is True
+    roof = rec["roofline"]
+    for k in ("compute_s", "memory_s", "collective_s", "dominant",
+              "model_flops", "hlo_flops_global", "useful_flop_ratio",
+              "step_time_bound_s", "roofline_fraction", "collectives",
+              "unknown_trip_whiles"):
+        assert k in roof
+    assert roof["unknown_trip_whiles"] == 0
+    assert roof["hlo_flops_global"] == flops * 4
+    assert roof["collectives"]["all-gather"]["bytes"] > 0
+
+
+@pytest.mark.parametrize("fake", [False, True], ids=["real", "fake"])
+def test_op_counter_live_bytes_follow_the_tensors(fake):
+    """A storage is live while any tensor on it is (a view keeps it), and
+    is freed with the last one; the peak is the most live at once."""
+    import contextlib
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.hlo_analysis import OpCounter
+    kib4 = 1024 * 4
+    with FakeTensorMode() if fake else contextlib.nullcontext():
+        x = torch.ones(1024)
+        with OpCounter() as c:
+            c.track({"x": x, "again": [x]})
+            assert c.live == kib4
+            y = x * 2
+            v = y.view(32, 32)
+            del y
+            z = v + 1
+            assert c.live == c.peak == 3 * kib4
+            del v
+            assert c.live == 2 * kib4
+            w = z * 3
+            del z, w
+            assert c.live == kib4
+    assert c.peak == 3 * kib4

@@ -1,0 +1,278 @@
+"""The port's steps on a mesh (``distributed.steps`` with ``mesh=``,
+``planner.shard_model``) on a 4-rank (2, 2) ``("data", "model")`` gloo
+mesh of CPU processes, against the JAX package's steps on a (2, 2) mesh of
+4 host devices (a subprocess that sets XLA_FLAGS before importing jax),
+and against the port's own unsharded step.
+
+Both packages start from the reference's init (``params_from_numpy``) and
+take one AdamW step (lr 1e-3, warmup 2, clip 1.0) on the same numpy batch
+(B = 4, S = 16: the batch splits over ``data``, the sequence over
+``model``).
+
+  * reduced qwen3-14b: the sharded train step against the reference's
+    sharded step (jitted); the prefill with ``seq_shard=True`` against the
+    reference's sharded prefill.
+  * reduced mixtral-8x7b: the sharded train step against the reference's
+    *sharded* step (``make_train_step(mesh=...)``: its sharding hints and
+    constraints active), run op by op (``jax.disable_jit()``, as
+    tests/test_torch_train_moe.py runs it: compiled, XLA rounds the
+    router's input and a near-tie flips an expert). Under tp = 2 both split
+    each sequence into two dispatch groups (``moe_group_split``), which
+    changes the capacity and so the routing: the unsharded step is the
+    wrong yardstick for it. The reference's weights go in as its init made
+    them, not placed by ``params_sharding``: op by op on placed weights,
+    each FSDP-split contraction is summed across the 4 devices in bf16 in
+    another order, which flips a router near-tie here (measured: ce 24.490
+    on placed weights, 24.313 unplaced, and 24.313 for the reference with
+    the group split and no mesh at all; the port's is within 2e-4 of the
+    last two).
+  * both: the gradient each sharded step hands to AdamW, leaf by leaf,
+    against the reference's (captured by wrapping ``optim.update`` on both
+    sides).
+  * qwen3-14b: the port's sharded step and gradient against its own
+    unsharded ones.
+
+Tolerances are tests/test_torch_train.py's, for the same reasons: loss
+LOSS_RTOL = 2e-3 relative, the gradient's global norm GNORM_RTOL = 2e-2
+relative, each param after the step PARAM_ATOL = 2.5 x lr absolute (Adam's
+first update is sign-like, so an element whose gradient rounds to the
+other sign moves by up to 2 x lr), each leaf's gradient LEAF_GRAD_RTOL =
+0.1 relative (the worst leaf's norm of the difference over its norm); and
+tests/test_torch_lm.py's logits bound, max |diff| / max |logit| <= 0.02.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_ranks
+
+B, S = 4, 16
+OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+LOSS_RTOL, GNORM_RTOL = 2e-3, 2e-2
+PARAM_ATOL = 2.5 * OCFG["lr"]
+LEAF_GRAD_RTOL = 0.1
+LOGIT_TOL = 0.02
+ARCHS = ("qwen3-14b", "mixtral-8x7b")
+
+REF = textwrap.dedent("""
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import numpy as np
+    import jax
+    from repro import configs, optim
+    from repro.distributed import steps
+    from repro.distributed.planner import params_sharding
+    from repro.launch.mesh import make_mesh
+    from repro.models import build
+
+    B, S = %d, %d
+    OCFG = optim.AdamWConfig(**%r)
+    _update = optim.update
+
+    def update_keeping_grads(ocfg, grads, opt_state, params):
+        # the step's own gradient, before clipping, among its metrics
+        p2, o2, m = _update(ocfg, grads, opt_state, params)
+        return p2, o2, {**m, "grads": grads}
+
+    optim.update = update_keeping_grads
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out = {}
+
+    def flat(prefix, tree):
+        for path, a in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            key = "/".join(str(getattr(q, "key", getattr(q, "idx", q)))
+                           for q in path)
+            out[prefix + key] = np.asarray(a, np.float32)
+
+    for i, arch in enumerate(%r):
+        cfg = configs.get_reduced(arch)
+        params = build(cfg).init(jax.random.key(i))
+        flat(arch + "/p0/", params)
+        rng = np.random.default_rng(i)
+        batch = {k: rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+                 for k in ("tokens", "labels")}
+        out[arch + "/tokens"], out[arch + "/labels"] = (batch["tokens"],
+                                                        batch["labels"])
+        pd = jax.device_put(params, params_sharding(params, mesh))
+        step = steps.make_train_step(cfg, OCFG, mesh=mesh)
+        if cfg.n_experts:
+            # op by op, on the weights as init made them (see docstring)
+            with jax.disable_jit():
+                p2, _, m = step(params, optim.init(params), batch)
+        else:
+            p2, _, m = jax.jit(step)(pd, optim.init(pd), batch)
+        flat(arch + "/p1/", p2)
+        flat(arch + "/g/", m["grads"])
+        out[arch + "/loss"] = np.asarray(m["loss"])
+        out[arch + "/gnorm"] = np.asarray(m["grad_norm"])
+        if not cfg.n_experts:
+            pre = jax.jit(steps.make_prefill(cfg, mesh=mesh, seq_shard=True))
+            out[arch + "/logits"] = np.asarray(
+                pre(pd, {"tokens": batch["tokens"]}))
+    np.savez(sys.argv[1], **out)
+""") % (B, S, OCFG, ARCHS)
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for key, a in flat.items():
+        *head, leaf = key.split("/")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[leaf] = a
+    return tree
+
+
+def _tree_of(ref, arch, which):
+    pre = f"{arch}/{which}/"
+    return _nest({k[len(pre):]: ref[k] for k in ref.files
+                  if k.startswith(pre)})
+
+
+def _port(rank, world, ref_path):
+    """Each rank's part; rank 0 returns the results (full tensors, gathered
+    by every rank)."""
+    from repro_torch import configs, optim
+    from repro_torch._tree import flatten_with_paths, leaves, unflatten
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.planner import PlanConfig, shard_model
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import params_from_numpy, to_reference
+
+    ref = np.load(ref_path)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    update, grads = optim.update, []
+
+    def update_keeping_grads(ocfg, g, opt_state, params):
+        # the step's own gradient, before clipping
+        grads.append(g)
+        return update(ocfg, g, opt_state, params)
+
+    optim.update = update_keeping_grads
+    plan = PlanConfig()
+    ocfg = optim.AdamWConfig(**OCFG)
+    out = {}
+
+    def model_of(cfg, tree, **kw):
+        return params_from_numpy(cfg, tree, device="cpu", **kw)
+
+    def ref_layout(cfg, tree):
+        return {"/".join(p): t.double().numpy() for p, t in
+                flatten_with_paths(to_reference(cfg, tree))}
+
+    for arch in ARCHS:
+        cfg = configs.get_reduced(arch)
+        tree = _tree_of(ref, arch, "p0")
+        batch = {k: torch.from_numpy(ref[f"{arch}/{k}"])
+                 for k in ("tokens", "labels")}
+        f32 = dict(weight_dtype=torch.float32, remat=True)
+        model = shard_model(model_of(cfg, tree, **f32), mesh, plan)
+        step = steps.make_train_step(cfg, ocfg, mesh=mesh, device="cpu")
+        _, _, m = step(model, optim.init(model.params()), batch)
+        res = {"loss": float(m["loss"]), "gnorm": float(m["grad_norm"]),
+               "params": ref_layout(cfg, model.params()),
+               "grads": ref_layout(cfg, grads.pop())}
+        if arch == "qwen3-14b":
+            served = shard_model(model_of(cfg, tree), mesh, plan)
+            pre = steps.make_prefill(cfg, mesh=mesh, seq_shard=True,
+                                     device="cpu")
+            res["logits"] = pre(served, {"tokens": batch["tokens"]}
+                                ).full_tensor().numpy()
+            # the port's own unsharded step and gradient
+            plain = model_of(cfg, tree, **f32)
+            _, _, g0 = steps.loss_and_grads(cfg, plain, batch)
+            res["grads_plain"] = ref_layout(cfg, unflatten(plain.params(),
+                                                           g0))
+            _, _, m0 = steps.make_train_step(cfg, ocfg, device="cpu")(
+                plain, optim.init(plain.params()), batch)
+            res["loss_plain"] = float(m0["loss"])
+            res["gnorm_plain"] = float(m0["grad_norm"])
+            res["params_plain"] = ref_layout(cfg, plain.params())
+            sharded = shard_model(model_of(cfg, tree, **f32), mesh, plan)
+            with steps._mesh_context(mesh, plan):
+                _, _, g1 = steps.loss_and_grads(
+                    cfg, sharded, steps._on_mesh(batch, mesh, plan),
+                    constrain=steps._make_constrain(cfg, mesh, plan, True),
+                    logits_sharding=steps._logits_sharding(cfg, mesh, plan))
+            res["grads_mesh"] = ref_layout(
+                cfg, unflatten(sharded.params(), leaves(g1)))
+        out[arch] = res
+    return out if rank == 0 else None
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("mesh_steps")
+    ref_path = str(tmp / "ref.npz")
+    r = subprocess.run([sys.executable, "-c", REF, ref_path],
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": "src",
+                            "JAX_PLATFORMS": "cpu"})
+    assert r.returncode == 0, r.stdout + r.stderr
+    port = _torch_ranks.run(_port, 4, tmp, ref_path)[0]
+    return np.load(ref_path), port
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def _same_params(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=PARAM_ATOL,
+                                   err_msg=k)
+
+
+def _same_grads(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    worst = max((np.linalg.norm(got[k] - want[k]) / np.linalg.norm(want[k]),
+                 k) for k in want)
+    assert worst[0] <= LEAF_GRAD_RTOL, worst
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_train_step_matches_the_reference_sharded_step(results,
+                                                               arch):
+    ref, port = results
+    got = port[arch]
+    assert _rel(got["loss"], ref[f"{arch}/loss"]) <= LOSS_RTOL
+    assert _rel(got["gnorm"], ref[f"{arch}/gnorm"]) <= GNORM_RTOL
+    want = {k[len(arch) + 4:]: ref[k] for k in ref.files
+            if k.startswith(f"{arch}/p1/")}
+    _same_params(got["params"], want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_step_gradient_matches_the_reference_per_leaf(results,
+                                                              arch):
+    """The gradient each sharded step hands to AdamW (before clipping),
+    leaf by leaf: Adam's first update moves each element by about lr
+    whatever its gradient, so the params alone would not see a lost or
+    reversed gradient."""
+    ref, port = results
+    pre = f"{arch}/g/"
+    want = {k[len(pre):]: ref[k] for k in ref.files if k.startswith(pre)}
+    _same_grads(port[arch]["grads"], want)
+
+
+def test_sharded_prefill_matches_the_reference_sharded_prefill(results):
+    ref, port = results
+    got, want = port["qwen3-14b"]["logits"], ref["qwen3-14b/logits"]
+    assert got.shape == want.shape == (B, S, 256)
+    assert np.abs(got - want).max() / np.abs(want).max() <= LOGIT_TOL
+
+
+def test_sharded_step_matches_the_ports_own_unsharded_step(results):
+    _, port = results
+    got = port["qwen3-14b"]
+    assert _rel(got["loss"], got["loss_plain"]) <= LOSS_RTOL
+    assert _rel(got["gnorm"], got["gnorm_plain"]) <= GNORM_RTOL
+    _same_params(got["params"], got["params_plain"])
+    _same_grads(got["grads_mesh"], got["grads_plain"])

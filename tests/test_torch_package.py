@@ -55,8 +55,36 @@ def test_every_module_is_listed():
               "repro_torch.launch.simulate", "repro_torch.launch.calibrate",
               "repro_torch.optim", "repro_torch.ckpt", "repro_torch.data",
               "repro_torch.distributed.ft", "repro_torch.distributed.steps",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.launch.mesh",
+              "repro_torch.launch.hlo_analysis", "repro_torch.launch.dryrun",
+              "repro_torch.distributed.shardctx",
+              "repro_torch.distributed.planner",
+              "repro_torch.distributed.compression",
+              "repro_torch.distributed.pipeline"):
         assert m in MODULES
+
+
+#: Modules of the JAX package with no module of the same name in the port:
+#: the TPU cost model (``core.h100_model`` stands in for it) and the Pallas
+#: kernel bodies (``kernels/csrc`` holds their CUDA, ``ops.py`` and
+#: ``ref.py`` the wrappers and plain versions).
+STOOD_IN_FOR = {"repro.core.tpu_model",
+                "repro.kernels.cascade_mlp.cascade_mlp",
+                "repro.kernels.flash_attn.flash_attn",
+                "repro.kernels.global_agg.global_agg",
+                "repro.kernels.mm_int8.mm_int8"}
+
+
+def test_every_reference_module_has_a_counterpart():
+    ref_root = ROOT / "src" / "repro"
+    missing = []
+    for path in sorted(ref_root.rglob("*.py")):
+        parts = path.relative_to(ref_root.parent).with_suffix("").parts
+        name = ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+        port = "repro_torch" + name[len("repro"):]
+        if port not in MODULES and name not in STOOD_IN_FOR:
+            missing.append(name)
+    assert missing == []
 
 
 @pytest.mark.parametrize("module", MODULES)
