@@ -148,9 +148,16 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      timed beside its bound; (d) phase 11b runs with the mesh engaged
      (``launch.train`` places the weights, moments and batches on it);
      (e) ``python -m repro_torch.launch.dryrun`` for qwen3-14b
-     ``train_4k`` on ``single`` and mixtral-8x7b ``train_4k`` on
-     ``multi``, two CPU subprocesses started before phase 8 (no card),
-     each record's memory a device and roofline terms printed.
+     ``train_4k`` on ``single``, mixtral-8x7b ``train_4k`` on ``multi``,
+     qwen1.5-32b ``decode_32k`` on ``single`` and mixtral-8x7b
+     ``long_500k`` on ``multi``, four CPU subprocesses started before
+     phase 8 (no card), each record's memory a device and roofline terms
+     printed (a decode record's cache must be exactly its share and its
+     peak below its arguments plus its cache); (f) at the end of phase 8,
+     ``make_decode_step`` on the same mesh with a cache placed by
+     ``cache_sharding``, over phase 8's decode tokens: its logits against
+     phase 8's decode (within MESH_DECODE_TOL, every row's top-1 token
+     phase 8's) and its ms a token beside phase 8's.
 It then prints the ``kernels`` JSON line (K5 bf16's numbers are phase 8's:
 its launches in the prefill and its time at one layer's shapes, with those
 of the phase-5/6 entry point under ``entry_point``, and the in-model calls
@@ -1375,6 +1382,13 @@ LM_CACHE, LM_DECODE = 64, 16
 # largest (0.4%) a layer that rounds apart; a wrong position, cache slot or
 # mask moves them by order 1.
 LM_DECODE_TOL = 0.06
+# Bound on the mesh decode (phase 12f) against phase 8's decode of the same
+# tokens, as max |diff| / max |logit|: the same function in another order
+# (the flash-decode normalizes after the p.v product in f32, where ``_sdpa``
+# rounds the softmax weights to bf16 before it). The CPU test of the mesh
+# decode against the port's unsharded decode holds it to this constant
+# (tests/test_torch_mesh_decode.py's MESH_TOL).
+MESH_DECODE_TOL = 0.015
 
 
 def _lm_flops(cfg, b: int, s: int) -> float:
@@ -1511,6 +1525,7 @@ def drive_lm(dev, err: dict) -> dict:
         dec.append(lg)
     torch.cuda.synchronize()
     dec_counts = launches.snapshot()
+    dec_steps = dec
     dec = torch.cat(dec, dim=1)
     full = logits[:, :LM_DECODE]
     rel = float((dec - full).abs().max() / full.abs().max())
@@ -1616,7 +1631,9 @@ def drive_lm(dev, err: dict) -> dict:
                profile_decode=prof_dec)
     del cache, q, k, v, qf, kf, vf, q4, k4, v4
     out["mesh"] = drive_mesh_prefill(dev, model, cfg, toks, logits, pre_ms)
-    del model, logits
+    out["mesh"]["decode"] = drive_mesh_decode(dev, model, cfg, toks,
+                                              dec_steps, dec_ms)
+    del model, logits, dec_steps
     torch.cuda.empty_cache()
     return out
 
@@ -2666,11 +2683,16 @@ def drive_launch_train(dev) -> dict:
 
 # -- phase 12: the mesh -------------------------------------------------------------
 
-# The dry run's two cells (python -m repro_torch.launch.dryrun): a dense
-# arch on the one-pod mesh, and the MoE arch on the two-pod mesh (EP/FSDP
-# over the pod axis). Each runs on the CPU alone, under FakeTensorMode.
+# The dry run's cells (python -m repro_torch.launch.dryrun): a dense arch's
+# train step on the one-pod mesh, the MoE arch's on the two-pod mesh
+# (EP/FSDP over the pod axis), and two decode steps: qwen1.5-32b's, whose
+# int8 cache is the largest a rank holds (10.7 GB), and mixtral's at
+# 524k tokens on the two-pod mesh (the ring buffer, B = 1, the MoE in
+# decode). Each runs on the CPU alone, under FakeTensorMode.
 DRYRUN_CELLS = (("qwen3-14b", "train_4k", "single"),
-                ("mixtral-8x7b", "train_4k", "multi"))
+                ("mixtral-8x7b", "train_4k", "multi"),
+                ("qwen1.5-32b", "decode_32k", "single"),
+                ("mixtral-8x7b", "long_500k", "multi"))
 DRYRUN_TIMEOUT_S = 600
 
 
@@ -2697,12 +2719,42 @@ def start_dryruns() -> list:
     return procs
 
 
+def _decode_floor(arch: str, shape_name: str, mesh: str) -> tuple:
+    """(a rank's share of a decode cell's bf16 weights and of its cache,
+    in bytes): 2 bytes a weight over the ranks that split the weights (the
+    data and model axes; the pod axis too above 100B weights, as the dry
+    run plans them), the cache (``steps.cache_specs`` in the reference's
+    KV dtype) over the ranks that split it (every rank where the batch
+    splits over the data axes; the model axis alone at B = 1)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import SHAPES_BY_NAME, get
+    from repro_torch.distributed import steps
+    from repro_torch.launch.dryrun import kv_dtype_rule
+    from repro_torch._tree import leaves
+    cfg, shape = get(arch), SHAPES_BY_NAME[shape_name]
+    cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_dtype_rule(cfg))
+    pods = 2 if mesh == "multi" else 1
+    w_split = 256 * (pods if cfg.param_count() > 100e9 else 1)
+    dp = 16 * pods
+    c_split = 16 * (dp if shape.global_batch % dp == 0 else 1)
+    cache = sum(t.numel() * t.element_size()
+                for t in leaves(steps.cache_specs(cfg, shape))
+                if isinstance(t, torch.Tensor))
+    return 2 * cfg.param_count() / w_split, cache / c_split
+
+
 def finish_dryruns(procs: list) -> list:
     """Phase 12e. Fails if a cell's process fails or runs past
     DRYRUN_TIMEOUT_S (``main`` stops any still running), or if a record's
-    argument bytes fall short of 90% of a rank's share of the f32 weights
-    and their two f32 moments, 12 bytes a weight over the ranks (the
-    leaves a rank holds whole only add to it)."""
+    argument bytes fall short of 90% of what a rank must hold (the leaves a
+    rank holds whole only add to it): for a train cell its share of the
+    f32 weights and their two f32 moments, 12 bytes a weight over the
+    ranks; for a decode cell its share of the bf16 weights and of the
+    cache (``_decode_floor``). A decode record also fails if its cache
+    bytes are not that share, or if its peak reaches its arguments plus
+    its cache: that would be a second copy of the cache (the step writes
+    it in place, as the reference donates it)."""
     from repro_torch.configs import get
     recs, failed = [], []
     for arch, shape, mesh, rec, log, t0, p in procs:
@@ -2719,7 +2771,23 @@ def finish_dryruns(procs: list) -> list:
             continue
         r = json.loads(rec.read_text())
         m, roof = r["memory_per_device"], r["roofline"]
-        floor = 0.9 * 12 * get(arch).param_count() / r["n_chips"]
+        cache = ""
+        if shape.startswith("train"):
+            floor = 0.9 * 12 * get(arch).param_count() / r["n_chips"]
+        else:
+            w_share, c_share = _decode_floor(arch, shape, mesh)
+            floor = 0.9 * (w_share + c_share)
+            if abs(m["cache_bytes"] - c_share) > 1e-6 * c_share:
+                failed.append(f"{arch} x {shape} x {mesh}: cache "
+                              f"{m['cache_bytes']} bytes a rank, not its "
+                              f"share {c_share:.0f}")
+            if m["live_bytes"] >= m["argument_bytes"] + m["cache_bytes"]:
+                failed.append(f"{arch} x {shape} x {mesh}: peak "
+                              f"{m['live_bytes']} reaches the arguments "
+                              f"{m['argument_bytes']} plus the cache "
+                              f"{m['cache_bytes']}")
+            cache = (f" (its {r['kv_dtype']} cache "
+                     f"{m['cache_bytes'] / 2**30:.3f} GiB)")
         if m["argument_bytes"] < floor:
             failed.append(f"{arch} x {shape} x {mesh}: arguments "
                           f"{m['argument_bytes']} bytes a rank, under "
@@ -2727,7 +2795,7 @@ def finish_dryruns(procs: list) -> list:
         print(f"[mesh] dryrun {arch} x {shape} x {mesh} ({r['n_chips']} "
               f"fake ranks, torch {r['torch']}, on the host CPU, "
               f"{wall:.1f} s from start): memory a device: arguments "
-              f"{m['argument_bytes'] / 2**30:.2f} GiB, peak "
+              f"{m['argument_bytes'] / 2**30:.2f} GiB{cache}, peak "
               f"{m['live_bytes'] / 2**30:.2f} GiB (fits 80 GB: "
               f"{m['fits_hbm_80g']}); per device {r['hlo']['flops_per_device']:.4e}"
               f" FLOP, {r['hlo']['hbm_bytes_per_device']:.4e} op-boundary "
@@ -2739,6 +2807,7 @@ def finish_dryruns(procs: list) -> list:
               f"{roof['collective_s'] * 1e3:.2f} ms -> {roof['dominant']};"
               f" useful-FLOP ratio {roof['useful_flop_ratio']:.3f}")
         recs.append(dict(arch=arch, shape=shape, mesh=mesh, wall_s=wall,
+                         kv_dtype=r.get("kv_dtype"),
                          memory_per_device=m, hlo=r["hlo"],
                          roofline={k: v for k, v in roof.items()
                                    if k != "collectives"},
@@ -2802,6 +2871,91 @@ def drive_mesh_prefill(dev, model, cfg, toks, want, plain_ms: float) -> dict:
     return dict(mesh_shape=dict(shape), backend=dist.get_backend(),
                 launches=counts["flash_attn"], equal=same, max_diff=diff,
                 ms=t["ms"], phase8_ms=plain_ms, placed_bytes=grown)
+
+
+def drive_mesh_decode(dev, model, cfg, toks, want: list,
+                      plain_ms: float) -> dict:
+    """Phase 12f, on phase 8's model (its weights DTensors on the one-rank
+    nccl mesh since 12b): ``make_decode_step`` with an empty cache placed
+    by ``cache_sharding``, over phase 8's decode tokens. Fails unless every
+    cache tensor is a DTensor on the mesh before and after, no kernel
+    launches (decode attends in plain PyTorch, as the reference), every
+    step's logits equal phase 8's (torch.equal) or lie within
+    MESH_DECODE_TOL of them as max |diff| / max |logit| (on one rank the
+    products are phase 8's own, but the mesh's attention is the
+    flash-decode, which normalizes after the p.v product in f32 where
+    phase 8's ``_sdpa`` rounds the softmax weights to bf16 before it), and
+    every row's top-1 token is phase 8's."""
+    import torch
+    from repro_torch._tree import flatten_with_paths, leaves, unflatten
+    from repro_torch.distributed import shardctx, steps
+    from repro_torch.distributed.planner import cache_sharding, shard_tensor
+    from repro_torch.kernels import launches
+
+    mesh = model.embedding["emb"].device_mesh
+    b = toks.shape[0]
+
+    def placed_cache():
+        cache = model.init_cache(b, LM_CACHE)
+        specs = flatten_with_paths(cache_sharding(cache, mesh, batch_size=b,
+                                                  cfg=cfg))
+        return unflatten(cache, [
+            shard_tensor(t, sh) if isinstance(t, torch.Tensor) else t
+            for (_, t), (_, sh) in zip(flatten_with_paths(cache), specs)])
+
+    step = steps.make_decode_step(cfg)
+    cache = placed_cache()
+    placed = [t for t in leaves(cache) if isinstance(t, torch.Tensor)]
+    if not all(shardctx.is_dtensor(t) and t.device_mesh is mesh
+               for t in placed):
+        raise AssertionError("phase 12f: a cache tensor is not on the mesh")
+    launches.reset()
+    got = []
+    for t in range(LM_DECODE):
+        lg, cache = step(model, toks[:, t:t + 1], cache)
+        got.append(lg.full_tensor())
+    torch.cuda.synchronize()
+    counts = launches.snapshot()
+    if counts or not all(shardctx.is_dtensor(t) for t in leaves(cache)
+                         if isinstance(t, torch.Tensor)):
+        raise AssertionError(f"phase 12f: launches {counts}, or the cache "
+                             f"left the mesh")
+    equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    rel = max(float((g - w).abs().max() / w.abs().max())
+              for g, w in zip(got, want))
+    top1 = float(torch.cat([(g.argmax(-1) == w.argmax(-1)).float()
+                            for g, w in zip(got, want)]).mean())
+    if not all(bool(torch.isfinite(g).all()) for g in got) or (
+            not equal and rel > MESH_DECODE_TOL) or top1 < 1.0:
+        raise AssertionError(f"phase 12f: mesh decode off phase 8's: max "
+                             f"|diff| / max |logit| {rel:.4e} (bound "
+                             f"{MESH_DECODE_TOL}), top-1 agreement "
+                             f"{top1:.4f} (bound 1)")
+    cache = placed_cache()
+    it = iter(range(LM_DECODE))
+
+    def one():
+        nonlocal cache
+        t = next(it)
+        _, cache = step(model, toks[:, t:t + 1], cache)
+
+    one()
+    ms = _time_ms(one, iters=LM_DECODE - 1, warmup=0, graph=False)["ms"]
+    print(f"[mesh] {_card_line()}")
+    print(f"[mesh] make_decode_step on the mesh ({LM_ARCH}, phase 8's "
+          f"weights as DTensors, a {LM_CACHE}-token cache placed by "
+          f"cache_sharding, B={b}, {LM_DECODE} steps from empty): launches "
+          f"{counts or 'none'}; logits "
+          + ("equal to phase 8's at every step (torch.equal)" if equal else
+             f"within MESH_DECODE_TOL of phase 8's (max |diff| / max "
+             f"|logit| {rel:.4e}, bound {MESH_DECODE_TOL}: the flash-decode "
+             f"normalizes after p.v)")
+          + f"; top-1 agreement {top1:.4f} (bound 1)"
+          + f"; {ms:.3f} ms a token (mean of tokens 1..{LM_DECODE - 1}) "
+          f"beside phase 8's {plain_ms:.3f} ms (+{ms - plain_ms:.3f} ms of "
+          f"DTensor host cost)")
+    return dict(equal=equal, rel_err=rel, top1=top1, ms=ms,
+                phase8_ms=plain_ms, steps=LM_DECODE, cache=LM_CACHE)
 
 
 def drive_compression(dev, grads) -> dict:

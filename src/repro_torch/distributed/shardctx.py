@@ -46,6 +46,21 @@ named with the collectives it adds (the dry run counts them):
     the weights all-gathered (their gradient reduce-scattered back): one
     all-gather a weight a call, and the activation's redistribution to and
     from batch-over-dp.
+
+The decode step (``steps.make_decode_step``) runs under
+``sharding_hints(stationary=True)``: ``matmul`` and ``embed`` move the
+step's few rows to the weights, never a weight to the rows. Its cache
+leaves are DTensors placed by ``planner.cache_sharding``, and each is read
+and written by the ranks that hold it:
+  * ``seq_decode``: the distributed flash-decode over a cache whose
+    sequence dim tp splits (K/V, MLA's latents): the slot's owner writes
+    it, each rank attends over its own keys, and an all-reduce MAX and
+    one all-reduce SUM combine the partial softmaxes over tp.
+  * ``cache_local``, ``like_state``, ``tp_slice``, ``tp_sum``,
+    ``tp_gather``: the pieces the recurrent states (split on their feature
+    dim) and whisper's cross K/V (split on the head dim) are updated and
+    read with; a leaf placed by no rule raises.
+  * ``expert``: one expert of a stacked MoE weight where it lies.
 """
 from __future__ import annotations
 
@@ -56,22 +71,34 @@ import torch
 
 from repro_torch.launch.mesh import P, axis_names, axis_sizes
 
-_STATE: List[Tuple[object, str, Tuple[str, ...]]] = []
+#: The active hints: (mesh, tp axis, dp axes, whether the weights stay where
+#: the planner put them (``matmul``, ``embed``; the decode step) rather than
+#: being gathered over the dp axes).
+_STATE: List[Tuple[object, str, Tuple[str, ...], bool]] = []
 
 
 @contextlib.contextmanager
 def sharding_hints(mesh, *, tp_axis: str = "model",
-                   dp_axes: Tuple[str, ...] = ("pod", "data")):
-    """Activate sharding hints while a step function runs."""
+                   dp_axes: Tuple[str, ...] = ("pod", "data"),
+                   stationary: bool = False):
+    """Activate sharding hints while a step function runs. ``stationary``
+    (the decode step) keeps every weight where the planner put it: the
+    products and the lookup move activations instead (``matmul``)."""
     if mesh is None or tp_axis not in axis_names(mesh):
         yield
         return
     _STATE.append((mesh, tp_axis,
-                   tuple(a for a in dp_axes if a in axis_names(mesh))))
+                   tuple(a for a in dp_axes if a in axis_names(mesh)),
+                   stationary))
     try:
         yield
     finally:
         _STATE.pop()
+
+
+def weights_stay(mesh) -> bool:
+    """Whether the active hints are on ``mesh`` and keep its weights put."""
+    return bool(_STATE) and _STATE[-1][0] is mesh and _STATE[-1][3]
 
 
 def active() -> bool:
@@ -101,7 +128,7 @@ def heads_spec(shape) -> Optional[P]:
     single-head tensors."""
     if not _STATE or len(shape) != 4 or shape[1] <= 1 or shape[2] <= 1:
         return None
-    _, tp, dp = _STATE[-1]
+    _, tp, dp, _ = _STATE[-1]
     if _size(tp) <= 1:
         return None
     return P(dp, None, tp, None)
@@ -116,7 +143,7 @@ def seq_q_spec(shape) -> Optional[P]:
     parallel dense attention; k/v full-sequence (``constrain_replicated_kv``)."""
     if not _STATE or len(shape) != 4 or shape[1] <= 1:
         return None
-    _, tp, dp = _STATE[-1]
+    _, tp, dp, _ = _STATE[-1]
     if _size(tp) <= 1 or shape[1] % _size(tp) != 0:
         return None
     return P(dp, tp, None, None)
@@ -131,7 +158,7 @@ def replicated_kv_spec(shape) -> Optional[P]:
     everything else replicated."""
     if not _STATE or len(shape) != 4 or shape[1] <= 1:
         return None
-    _, _, dp = _STATE[-1]
+    _, _, dp, _ = _STATE[-1]
     return P(dp, None, None, None)
 
 
@@ -142,7 +169,7 @@ def constrain_replicated_kv(x):
 def tp_size() -> int:
     if not _STATE:
         return 1
-    _, tp, _ = _STATE[-1]
+    _, tp, _, _ = _STATE[-1]
     return _size(tp)
 
 
@@ -160,7 +187,7 @@ def experts_spec(shape, expert_axis: int) -> Optional[P]:
     dp."""
     if not _STATE:
         return None
-    _, tp, dp = _STATE[-1]
+    _, tp, dp, _ = _STATE[-1]
     tpn = _size(tp)
     if tpn <= 1 or shape[expert_axis] % tpn != 0:
         return None
@@ -185,7 +212,7 @@ def axes_spec(shape, tp_dims=(), dp_dims=()) -> Optional[P]:
     """Generic: pin listed dims to tp / dp axes (uneven sharding allowed)."""
     if not _STATE:
         return None
-    _, tp, dp = _STATE[-1]
+    _, tp, dp, _ = _STATE[-1]
     if _size(tp) <= 1:
         return None
     spec = [None] * len(shape)
@@ -207,7 +234,7 @@ def moe_tokens_spec(shape, token_axis: int = 1) -> Optional[P]:
     dp+tp (expert compute is data parallelism over token slots)."""
     if not _STATE:
         return None
-    _, tp, dp = _STATE[-1]
+    _, tp, dp, _ = _STATE[-1]
     n = _size(tp)
     for a in dp:
         n *= _size(a)
@@ -240,22 +267,35 @@ def matmul(x, w):
     one over the dims that split w's output). DTensor's own ``mm``
     strategy search was too slow for the dry run on the (2, 16, 16) mesh,
     and its choice moved more collective bytes than this layout. Plain
-    tensors multiply as they are."""
+    tensors multiply as they are.
+
+    Under ``sharding_hints(stationary=True)`` (the decode step: a few rows
+    against every weight) no weight moves: a dp axis that splits w's
+    contraction dim splits x's last dim alike (x's rows all-to-all'd into
+    columns) and gives a partial sum; one that splits w's output dim takes
+    x's rows whole (their all-gather) and gives y split on its last dim;
+    either is then put back on x's rows (a reduce-scatter, or an
+    all-to-all), and a partial sum over tp is summed at once (an
+    all-reduce). The bytes moved are the activations', and no gathered
+    weight is ever held. Partial sums are taken and summed in f32 and
+    rounded once (``_summed_product``), as the unsplit product rounds."""
     if not (is_dtensor(x) and is_dtensor(w)):
         return x @ w
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = w.device_mesh
     _, dp = _roles(mesh)
+    stay = weights_stay(mesh)
     xl, wl = x.ndim - 1, w.ndim - 1
     xpl, wpl, ypl = list(x.placements), list(w.placements), []
-    xgrad, wgrad = [], []
+    xgrad, wgrad, final = [], [], []
     for i, a in enumerate(axis_names(mesh)):
         wp = wpl[i]
-        if a in dp and isinstance(wp, Shard):
+        if a in dp and isinstance(wp, Shard) and not stay:
             wp = wpl[i] = Replicate()
         col = isinstance(wp, Shard) and wp.dim == wl
         row = isinstance(wp, Shard) and wp.dim == wl - 1
         xp = xpl[i]
+        rows = xp if isinstance(xp, Shard) and xp.dim < xl else Replicate()
         if col or xp.is_partial() or (isinstance(xp, Shard) and xp.dim == xl
                                       and not row):
             xp = Replicate()
@@ -268,14 +308,52 @@ def matmul(x, w):
             ypl.append(Shard(xl))
         else:
             ypl.append(xp)
+        final.append(rows if a in dp and (row or col) else
+                     Replicate() if stay and row else ypl[-1])
         xgrad.append(Partial() if col else xp)
         wgrad.append(Partial() if isinstance(xp, Shard) and xp.dim < xl
                      else wp)
     x = x.redistribute(mesh, xpl)
     w = w.redistribute(mesh, wpl)
-    y = (x.to_local(grad_placements=xgrad)
-         @ w.to_local(grad_placements=wgrad))
-    return _wrap(y, x, ypl)
+    if stay and Partial() in ypl:
+        return _summed_product(x, w, ypl, final)
+    y = _wrap(x.to_local(grad_placements=xgrad)
+              @ w.to_local(grad_placements=wgrad), x, ypl)
+    return y.redistribute(mesh, final) if final != ypl else y
+
+
+#: Weight elements a product of ``_summed_product`` takes at a time (its
+#: f32 copy: 512 KiB of a rank's weight shard, never the shard), and the
+#: bytes of f32 partial sums a collective of it takes at a time (1 MiB, of
+#: every row a decode brings in, never the whole product's).
+F32_WEIGHT_CHUNK, F32_SUM_BYTES = 1 << 17, 1 << 20
+
+
+def _summed_product(x, w, ypl, final):
+    """A stationary product whose output is a partial sum (``matmul``) in
+    f32, summed over the ranks (its reduce-scatter or all-reduce) and
+    rounded to x's dtype once, as the unsplit product rounds its f32
+    accumulation once. w's columns go in groups (each group's partial sums
+    summed by one collective: the bytes of the whole product's, in pieces),
+    each a chunk of columns at a time (each chunk's weights copied to
+    f32)."""
+    mesh = w.device_mesh
+    mid = [final[i] if p.is_partial() else p for i, p in enumerate(ypl)]
+    xf, wl = x.to_local().float(), w.to_local()
+    n, rows = wl.shape[-1], max(1, xf[..., 0].numel())
+    step = max(1, F32_WEIGHT_CHUNK // max(1, wl.shape[-2]))
+    group = max(step, F32_SUM_BYTES // (4 * rows))
+    parts = []
+    for j in range(0, n, group):
+        end = min(j + group, n)
+        buf = xf.new_empty((*xf.shape[:-1], end - j))
+        for k in range(j, end, step):
+            e = min(k + step, end)
+            buf[..., k - j:e - j] = xf @ wl[..., k:e].float()
+        parts.append(_wrap(buf, x, ypl).redistribute(mesh, mid)
+                     .to_local().to(x.dtype))
+    y = _wrap(torch.cat(parts, dim=-1), x, mid)
+    return y.redistribute(mesh, final) if final != mid else y
 
 
 def embed(table, tokens):
@@ -285,25 +363,35 @@ def embed(table, tokens):
     tokens its vocab rows hold (0 for the rest), the rows coming out a
     partial sum over tp. DTensor's own rule for this gather and its
     backward refused the multi-pod mesh's (Shard(0), Shard(0)) tokens and
-    a vocab-sharded table (torch 2.11)."""
+    a vocab-sharded table (torch 2.11). Under ``sharding_hints(
+    stationary=True)`` the table stays put: a dp axis that splits its
+    model dim takes every token of its rows (their all-gather) and looks
+    up its columns, which go back to the tokens' rows (an all-to-all)."""
     if not is_dtensor(table):
         return table[tokens]
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = table.device_mesh
     _, dp = _roles(mesh)
+    stay = weights_stay(mesh)
     names = axis_names(mesh)
     if not is_dtensor(tokens):
         tokens = _wrap(tokens, table, [Replicate()] * mesh.ndim)
     tpl, wpl, ypl, wgrad = list(tokens.placements), [], [], []
+    final = []
     V = table.shape[0]
     off = 0
     for i, a in enumerate(names):
         wp = table.placements[i]
         vocab = isinstance(wp, Shard) and wp.dim == 0 and a not in dp
-        if vocab and isinstance(tpl[i], Shard):
+        cols = stay and isinstance(wp, Shard) and wp.dim == 1
+        rows = tpl[i]
+        if (vocab or cols) and isinstance(tpl[i], Shard):
             tpl[i] = Replicate()
-        wpl.append(wp if vocab else Replicate())
-        ypl.append(Partial() if vocab else tpl[i])
+        wpl.append(wp if vocab or cols else Replicate())
+        ypl.append(Partial() if vocab else
+                   Shard(tokens.ndim) if cols else tpl[i])
+        final.append(rows if cols else
+                     Replicate() if stay and vocab else ypl[-1])
         wgrad.append(wp if vocab else (Partial() if isinstance(tpl[i], Shard)
                                        else Replicate()))
         if vocab:
@@ -313,7 +401,8 @@ def embed(table, tokens):
     idx = tok.long() - off
     hit = (idx >= 0) & (idx < w.shape[0])
     rows = w[idx.clamp(0, w.shape[0] - 1)] * hit[..., None].to(w.dtype)
-    return _wrap(rows, table, ypl)
+    y = _wrap(rows, table, ypl)
+    return y.redistribute(mesh, final) if final != ypl else y
 
 
 def unflatten(y, dim: int, sizes: Tuple[int, ...]):
@@ -457,9 +546,217 @@ def partial_sum(local: torch.Tensor, like, placements):
                                else Partial() for p in placements])
 
 
+# ---------------------------------------------------------------------------
+# the decode step on a mesh: the cache leaves are DTensors placed by
+# planner.cache_sharding, each rank reads and writes its own shard only
+# ---------------------------------------------------------------------------
+
+def _tp_dim(mesh) -> int:
+    return axis_names(mesh).index(_roles(mesh)[0])
+
+
+def row_placements(x) -> list:
+    """The placements of a decode activation's rows: batch over the dp
+    axes (when they divide it), whole over tp."""
+    mesh = x.device_mesh
+    return _batch_placements(mesh, x.shape[0], _roles(mesh)[1])
+
+
+def rows(x) -> torch.Tensor:
+    """The rank's batch rows of DTensor ``x`` (B, ...) with every other dim
+    whole: the all-gather over tp of what tp splits (a token's q, k, v or
+    gate: B/dp x a few KB)."""
+    return x.redistribute(x.device_mesh, row_placements(x)).to_local()
+
+
+def wrap_rows(local: torch.Tensor, like) -> "torch.Tensor":
+    """``local`` (the rank's rows, every other dim whole) as a DTensor."""
+    return _wrap(local, like, row_placements(like))
+
+
+def cache_local(leaf, name: str, dims: Sequence[int]):
+    """(local shard, the dim tp splits or None, the rank's index along tp,
+    the tp size) of a cache leaf (B, ...): its rows as ``row_placements``
+    gives them, and over tp either whole or split on one of ``dims``. Any
+    other placement raises ValueError naming the leaf: a leaf is never
+    gathered."""
+    from torch.distributed.tensor import Shard
+    mesh = leaf.device_mesh
+    want = _batch_placements(mesh, leaf.shape[0], _roles(mesh)[1])
+    t = _tp_dim(mesh)
+    # a mesh dim of one rank splits nothing, whatever its placement says
+    ok = all(p == want[i] or mesh.size(i) == 1
+             for i, p in enumerate(leaf.placements) if i != t)
+    p = leaf.placements[t]
+    split = p.dim if isinstance(p, Shard) and mesh.size(t) > 1 else None
+    if not ok or not (split is None and not p.is_partial()
+                      or split in dims):
+        raise ValueError(f"cache leaf {name!r} {tuple(leaf.shape)}: "
+                         f"placements {tuple(leaf.placements)} match no "
+                         f"decode rule (rows {tuple(want)}, tp whole or "
+                         f"split on dim {tuple(dims)})")
+    if split is not None and leaf.shape[split] % mesh.size(t):
+        raise ValueError(f"cache leaf {name!r}: dim {split} "
+                         f"({leaf.shape[split]}) does not divide over tp")
+    n = mesh.size(t) if split is not None else 1
+    return leaf.to_local(), split, mesh.get_local_rank(t) if n > 1 else 0, n
+
+
+def like_state(x, state) -> torch.Tensor:
+    """DTensor ``x`` in the placements of a recurrent state leaf of the same
+    rank (its rows; over tp its feature slice, or whole), as the local
+    tensor: an all-gather over tp where x is split and the state whole,
+    a slice where it is the other way round."""
+    return x.redistribute(state.device_mesh, list(state.placements)).to_local()
+
+
+def tp_slice(w, dim: Optional[int]) -> torch.Tensor:
+    """Local DTensor weight ``w`` whole on every mesh dim but tp, where it
+    is split on ``dim`` (whole for None): the slice that meets a state
+    split alike. An all-gather over dp where the planner splits it there
+    (RG-LRU's conv kernel is not)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = w.device_mesh
+    pl = [Replicate()] * mesh.ndim
+    if dim is not None:
+        pl[_tp_dim(mesh)] = Shard(dim)
+    return w.redistribute(mesh, pl).to_local()
+
+
+def as_dtensor(local: torch.Tensor, like, placements=None):
+    """``local`` as a DTensor on ``like``'s mesh with ``placements``
+    (default: replicated on every mesh dim); ``local`` itself where
+    ``like`` is a plain tensor."""
+    if not is_dtensor(like):
+        return local
+    if placements is None:
+        from torch.distributed.tensor import Replicate
+        placements = [Replicate()] * like.device_mesh.ndim
+    return _wrap(local, like, placements)
+
+
+def tp_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of local ``t`` over the tp axis: one all-reduce."""
+    import torch.distributed._functional_collectives as fc
+    return fc.all_reduce(t, "sum", mesh.get_group(_tp_dim(mesh)))
+
+
+def tp_gather(t: torch.Tensor, dim: int, like) -> torch.Tensor:
+    """Local ``t`` (each rank's slice of ``dim``) gathered whole over tp,
+    in rank order: one all-gather."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = like.device_mesh
+    pl = [Replicate()] * mesh.ndim
+    pl[_tp_dim(mesh)] = Shard(dim)
+    return _wrap(t, like, pl).redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def seq_decode(partial: Callable, qs: Sequence, caches, news, slot: int,
+               params=None):
+    """The distributed flash-decode over cache leaves whose sequence dim (1)
+    is split over tp (``planner.cache_sharding`` picks it, the largest).
+
+    ``caches`` and ``news`` map each leaf's name to the DTensor leaf
+    (B, T, ...) and to its new entry (B, 1, ...) in the leaf's dtype.
+    * the write: the rank whose shard holds global ``slot`` writes the new
+      entry in place at ``slot - rank * T/tp``; every other shard is left
+      as it was. The new entries reach the rows' ranks first (an
+      all-gather over tp of B/dp x one entry).
+    * the partial attention: ``partial(q_locals, cache_locals, kpos,
+      params_local) -> (m, l, o)``, the f32 running max (B_l, X), sum of
+      exps (B_l, X) and unnormalized output (B_l, X, D) of the rank's
+      queries (every head: ``qs`` are all-gathered over tp, B_l x H x hd)
+      against its keys at global positions ``kpos``; ``params`` (small
+      leaves, MLA's up-projection) reach it whole (their all-gather).
+    * the combine, over tp: all_reduce(MAX) of m (B_l·X f32), then one
+      all_reduce(SUM) of [l·e^(m−M) | o·e^(m−M)] (B_l·X·(D+1) f32). A rank
+      whose keys are all masked has m = NEG_INF and weighs exactly 0.
+    Returns o / l, (B, X, D) f32, as a DTensor on the rows. A cache whole
+    over tp takes the same path without the combine."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch._tree import tree_map
+    import torch.distributed._functional_collectives as fc
+    q = qs[0]
+    mesh = q.device_mesh
+    pl = row_placements(q)
+    local, split = {}, set()
+    for name, leaf in caches.items():
+        loc, dim, r, n = cache_local(leaf, name, (1,))
+        local[name] = loc
+        split.add((dim, r, n))
+    if len(split) != 1:
+        raise ValueError(f"cache leaves {list(caches)} split apart: {split}")
+    dim, r, n = split.pop()
+    Tl = next(iter(local.values())).shape[1]
+    k0 = r * Tl
+    new = {k: v.redistribute(mesh, pl).to_local() for k, v in news.items()}
+    if k0 <= slot < k0 + Tl:
+        for k, loc in local.items():
+            loc[:, slot - k0] = new[k][:, 0]
+    ql = [t.redistribute(mesh, pl).to_local() for t in qs]
+    rep = [Replicate()] * mesh.ndim
+
+    def whole(w):
+        return w.redistribute(mesh, rep).to_local() if is_dtensor(w) else w
+
+    pp = None if params is None else tree_map(whole, _as_tree(params))
+    kpos = k0 + torch.arange(Tl, device=ql[0].device)
+    m, l, o = partial(ql, list(local.values()), kpos, pp)
+    if n > 1:
+        g = mesh.get_group(_tp_dim(mesh))
+        w = torch.exp(m - fc.all_reduce(m, "max", g))
+        lo = fc.all_reduce(torch.cat([(l * w)[..., None],
+                                      o * w[..., None]], dim=-1), "sum", g)
+        l, o = lo[..., 0], lo[..., 1:]
+    return _wrap(o / l[..., None], q, pl)
+
+
+def _as_tree(params):
+    """A dict of weights with every module (``_Tree``) read as its dict."""
+    if hasattr(params, "tree"):
+        return params.tree()
+    if isinstance(params, dict):
+        return {k: _as_tree(v) for k, v in params.items()}
+    return params
+
+
+def expert(w, e: int):
+    """Expert ``e`` of a stacked DTensor weight (E, a, b) as a DTensor
+    (a, b), its other splits kept: a view where no axis splits the expert
+    dim; where one does (llama4's experts over tp), the owner's block
+    summed over that axis, the others adding zeros (one all-reduce of a
+    rank's share of one expert); ``w[e]`` of a plain tensor."""
+    if not is_dtensor(w):
+        return w[e]
+    from torch.distributed.tensor import Replicate, Shard
+    import torch.distributed._functional_collectives as fc
+    mesh = w.device_mesh
+    ax = [i for i, p in enumerate(w.placements)
+          if isinstance(p, Shard) and p.dim == 0]
+    if not ax:
+        return w[e]
+    if len(ax) > 1:
+        raise ValueError(f"experts split over mesh dims {ax}")
+    i = ax[0]
+    local = w.to_local()
+    per = local.shape[0]
+    owner = e // per
+    blk = (local[e - owner * per] if mesh.get_local_rank(i) == owner
+           else torch.zeros_like(local[0]))
+    blk = fc.all_reduce(blk, "sum", mesh.get_group(i))
+    pl = [Replicate() if j == i else
+          (Shard(p.dim - 1) if isinstance(p, Shard) else p)
+          for j, p in enumerate(w.placements)]
+    return _wrap(blk, w, pl)
+
+
 __all__ = ["sharding_hints", "active", "is_dtensor", "constrain_heads",
            "constrain_seq_q", "constrain_replicated_kv", "tp_size",
            "moe_group_split", "constrain_experts", "constrain_axes",
            "constrain_moe_tokens", "heads_spec", "seq_q_spec",
            "replicated_kv_spec", "experts_spec", "axes_spec",
-           "moe_tokens_spec", "heads_local", "batch_local", "partial_sum"]
+           "moe_tokens_spec", "heads_local", "batch_local", "partial_sum",
+           "weights_stay", "row_placements", "rows", "wrap_rows",
+           "cache_local", "as_dtensor", "like_state", "tp_slice",
+           "tp_sum", "tp_gather", "seq_decode", "expert"]

@@ -7,7 +7,8 @@ the MoE Switch loss) and its gradient through autograd, then one AdamW
 update, in place on the model's weights. Attention there runs the
 reference's own functions (``models.attention``), never K5, which has no
 backward. ``make_prefill`` and ``make_decode_step`` run under
-``torch.inference_mode()``, so the prefill's attention is K5.
+``torch.inference_mode()`` (``torch.no_grad()`` on a mesh), so the
+prefill's attention is K5.
 
 Batches follow the reference: ``tokens``/``labels`` (LM), plus ``frames``
 (whisper's stub frame embeddings) or ``embeds`` (qwen2-vl's stub patch
@@ -25,8 +26,10 @@ its gold logit as partial sums over the vocab shards (the logits are never
 gathered). The model's weights are on the mesh already
 (``planner.shard_model``); plain tensors in the model code (masks,
 positions, the optimizer's step) count as replicated
-(``implicit_replication``). ``input_specs`` and ``cache_specs`` give meta
-tensors, the counterpart of the reference's ``ShapeDtypeStruct``s.
+(``implicit_replication``). The decode step finds its mesh on the cache
+(``make_decode_step``) and keeps the weights where they lie. ``input_specs``
+and ``cache_specs`` give meta tensors, the counterpart of the reference's
+``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -201,7 +204,7 @@ def _on_mesh(batch: Batch, mesh, plan: PlanConfig) -> Batch:
         for k, v in batch.items()}
 
 
-def _mesh_context(mesh, plan: PlanConfig):
+def _mesh_context(mesh, plan: PlanConfig, stationary: bool = False):
     """The sharding hints and implicit replication of a step on ``mesh``;
     nothing off a mesh."""
     if mesh is None:
@@ -209,7 +212,8 @@ def _mesh_context(mesh, plan: PlanConfig):
     from torch.distributed.tensor.experimental import implicit_replication
     stack = contextlib.ExitStack()
     stack.enter_context(shardctx.sharding_hints(
-        mesh, tp_axis=plan.tp_axis or "model", dp_axes=plan.dp_axes))
+        mesh, tp_axis=plan.tp_axis or "model", dp_axes=plan.dp_axes,
+        stationary=stationary))
     stack.enter_context(implicit_replication())
     return stack
 
@@ -317,14 +321,54 @@ def make_prefill(cfg: ArchConfig, *, mesh=None,
 
 
 def make_decode_step(cfg: ArchConfig) -> Callable:
-    """(model, token, cache) -> (logits, cache): one serve_step token under
-    ``torch.inference_mode()``."""
+    """(model, token, cache, **kw) -> (logits, cache): one serve_step token
+    under ``torch.inference_mode()``; the cache is written in place. ``kw``
+    goes to ``model.decode_step`` (a decoder's ``embeds`` in place of the
+    token).
 
-    def decode(model, token, cache):
-        with torch.inference_mode():
-            return model.decode_step(token, cache)
+    The mesh comes from the cache: where its leaves are DTensors (placed by
+    ``planner.cache_sharding``, the weights by ``planner.shard_model``) the
+    step runs on their mesh, as the reference's jitted step runs under its
+    ``cache_sharding`` with the cache donated: the token is placed by the
+    ``batch_shardings`` rule (``PlanConfig()``'s tp and dp axes, all a
+    decode reads of a plan), the model body runs under the sharding hints
+    with the weights kept where they lie (``stationary``: a decode moves a
+    few rows, never a weight), and under ``torch.no_grad()`` (a DTensor
+    weight sliced in inference mode fails on its version counter, as in
+    ``make_prefill``). Each cache leaf is read and written by its own
+    ranks only (``shardctx.seq_decode`` for the sequence-split caches, the
+    ``*_on_mesh`` steps for the recurrent states), and a leaf placed any
+    other way raises. The logits are a DTensor (``full_tensor()``)."""
+
+    plan = PlanConfig()
+
+    def decode(model, token, cache, **kw):
+        mesh = _cache_mesh(cache)
+        if mesh is None:
+            with torch.inference_mode():
+                return model.decode_step(token, cache, **kw)
+        ins = {k: v for k, v in dict(kw, token=token).items()
+               if v is not None and not shardctx.is_dtensor(v)}
+        kw.update(_on_mesh(ins, mesh, plan))
+        token = kw.pop("token", token)
+        with torch.no_grad(), _mesh_context(mesh, plan, stationary=True):
+            return model.decode_step(token, cache, **kw)
 
     return decode
+
+
+def _cache_mesh(cache):
+    """The mesh of a decode cache whose tensors are all DTensors on one
+    mesh; None for a cache of plain tensors. Raises for a mixture."""
+    ts = [t for t in leaves(cache) if isinstance(t, torch.Tensor)]
+    meshes = {id(t.device_mesh): t.device_mesh for t in ts
+              if shardctx.is_dtensor(t)}
+    if not meshes:
+        return None
+    if len(meshes) > 1 or not all(shardctx.is_dtensor(t) for t in ts):
+        raise ValueError("a decode cache is either all DTensors on one mesh "
+                         "or all plain tensors")
+    return next(iter(meshes.values()))
 
 
 # ---------------------------------------------------------------------------

@@ -18,12 +18,17 @@ What has no counterpart, and is left out: the reference's
 op stream does not make). The memory keys name the H100's 80 GB
 (``fits_hbm_80g``). A prefill cell's attention is K5's plain version here
 (no card), whose (B*H, S, S) score matrix the kernel never holds: its
-memory counts it. Decode cells are not run (``run_cell`` raises, the
-sweep records them as skipped): the decode step writes its cache in
-place, which DTensor has no rule for. A fake tensor holds no routing to
-count, so the MoE layer dispatches statically here (``_full_capacity``):
-every expert computes its full capacity, as the reference's (E, G, C)
-dispatch does.
+memory counts it. A decode cell takes the reference's KV dtype rule (int8
+for ``n_kv >= 32`` or ``n_experts >= 64``: qwen1.5-32b and llama4, and
+minicpm3-4b, whose MLA latent cache stays bf16 all the same), bf16
+weights, and its cache (``steps.cache_specs``) placed by
+``cache_sharding``; the step writes the cache in place, the counterpart
+of the reference's donated cache, so its arguments are the weights' and
+the cache's shards and the token, and its peak holds no second cache
+(``memory_per_device.cache_bytes`` is the rank's share of the cache). A
+fake tensor holds no routing to count, so the MoE layer dispatches
+statically here (``_full_capacity``): every expert computes its full
+capacity, as the reference's (E, G, C) dispatch does.
 
 The roofline divides by the H100's data-sheet rates (``core.h100_model``:
 bf16 tensor cores, HBM, and NVLink 4 one way for the collective term),
@@ -33,7 +38,7 @@ Usage:
     # one cell
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch qwen3-14b --shape train_4k --mesh single --out cell.json
-    # the sweep on both meshes (a subprocess a cell)
+    # the sweep on both meshes (a subprocess a cell; decode cells included)
     PYTHONPATH=src python -m repro_torch.launch.dryrun --sweep \\
         --outdir build/dryrun
 """
@@ -53,19 +58,18 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from repro_torch import optim
+from repro_torch._tree import flatten_with_paths, leaves, unflatten
 from repro_torch.configs import (ARCH_NAMES, SHAPES, SHAPES_BY_NAME,
                                  cell_runnable, get)
 from repro_torch.core import h100_model
 from repro_torch.distributed import steps
-from repro_torch.distributed.planner import (PlanConfig, shard_model,
-                                             shard_tensor)
+from repro_torch.distributed.planner import (PlanConfig, cache_sharding,
+                                             shard_model, shard_tensor)
 from repro_torch.launch import hlo_analysis
 from repro_torch.launch.mesh import axis_names, make_production_mesh
 from repro_torch.models import build
 
 HBM_PER_CHIP = h100_model.HBM_BYTES          # H100 SXM: 80 GB
-DECODE_SKIP = ("skip: the port's decode step writes its cache in place, "
-               "which DTensor has no rule for")
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +134,9 @@ class Lowered:
     fake_mode: Any
 
     def run(self):
-        """(HLOAnalysis, argument bytes, peak live bytes) of one run."""
+        """(HLOAnalysis, argument bytes, peak live bytes) of one run. The
+        arguments are the weights and every other argument (the optimizer
+        state and the batch; the token and the cache)."""
         model, *rest = self.args
         with _fake_mode(self.fake_mode), _static_moe_dispatch(), \
                 hlo_analysis.OpCounter() as c:
@@ -140,18 +146,33 @@ class Lowered:
         return c.analysis(), arg_bytes, c.peak
 
 
+def kv_dtype_rule(cfg) -> str:
+    """The reference's decode KV dtype: int8 (the paper's power-of-two
+    scheme) for the caches whose bf16 size exceeds a pod's HBM."""
+    return "int8" if cfg.n_kv >= 32 or cfg.n_experts >= 64 else "bfloat16"
+
+
+def _local_bytes(tree) -> int:
+    """The bytes of this rank's shards of a tree's tensors."""
+    return sum(t.to_local().numel() * t.element_size()
+               if hasattr(t, "to_local") else t.numel() * t.element_size()
+               for t in leaves(tree) if isinstance(t, torch.Tensor))
+
+
 def lower_cell(arch: str, shape_name: str, mesh, *,
                seq_shard: bool = True, remat: bool = True,
                moment_dtype: str = "float32", accum: int = 1,
-               cfg=None, shape=None):
+               kv_dtype: Optional[str] = None, cfg=None, shape=None):
     """Build the cell's step and its arguments on ``mesh`` under
     ``FakeTensorMode``. Returns (lowered, meta). ``cfg`` and ``shape``
-    override the config and the ShapeSpec (tests use reduced ones)."""
+    override the config and the ShapeSpec (tests use reduced ones);
+    ``kv_dtype`` a decode cell's ``kv_dtype_rule``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     shape = shape or SHAPES_BY_NAME[shape_name]
     cfg = cfg or get(arch)
     if shape.kind == "decode":
-        raise NotImplementedError(DECODE_SKIP)
+        cfg = dataclasses.replace(
+            cfg, kv_cache_dtype=kv_dtype or kv_dtype_rule(cfg))
     # >=100B params: extend ZeRO-3 sharding across the pod axis
     if "pod" in axis_names(mesh) and cfg.param_count() > 100e9:
         plan = PlanConfig(fsdp_axis=("pod", "data"))
@@ -175,10 +196,20 @@ def lower_cell(arch: str, shape_name: str, mesh, *,
                                        seq_shard=seq_shard, accum=accum,
                                        device="cpu")
             args = (model, opt, batch)
-        else:
+        elif shape.kind == "prefill":
             fn = steps.make_prefill(cfg, mesh=mesh, plan=plan,
                                     seq_shard=seq_shard, device="cpu")
             args = (model, batch)
+        else:
+            cache = steps.cache_specs(cfg, shape)
+            specs = flatten_with_paths(cache_sharding(
+                cache, mesh, plan, batch_size=shape.global_batch, cfg=cfg))
+            cache = unflatten(cache, [
+                shard_tensor(torch.zeros(t.shape, dtype=t.dtype), sh)
+                if isinstance(t, torch.Tensor) else t
+                for (_, t), (_, sh) in zip(flatten_with_paths(cache), specs)])
+            fn = steps.make_decode_step(cfg)
+            args = (model, batch["token"], cache)
     return Lowered(fn, args, fake), {"cfg": cfg, "shape": shape}
 
 
@@ -224,9 +255,11 @@ def roofline_terms(hlo: hlo_analysis.HLOAnalysis, n_chips: int,
 def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
              seq_shard: bool = True, remat: bool = True,
              moment_dtype: str = "float32", accum: int = 1,
+             kv_dtype: Optional[str] = None,
              mesh=None, cfg=None, shape=None) -> Dict[str, Any]:
     """One cell's record. ``mesh`` (default: the production mesh of
-    ``mesh_kind``), ``cfg`` and ``shape`` override the cell's."""
+    ``mesh_kind``), ``cfg`` and ``shape`` override the cell's. A decode
+    record adds ``kv_dtype`` and the rank's cache bytes."""
     mesh = mesh if mesh is not None else make_production_mesh(
         multi_pod=(mesh_kind == "multi"))
     n_chips = mesh.size()
@@ -237,7 +270,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     t0 = time.time()
     lowered, meta = lower_cell(arch, shape_name, mesh, seq_shard=seq_shard,
                                remat=remat, moment_dtype=moment_dtype,
-                               accum=accum, cfg=cfg, shape=shape)
+                               accum=accum, kv_dtype=kv_dtype, cfg=cfg,
+                               shape=shape)
     rec["lower_s"] = round(time.time() - t0, 2)
     t0 = time.time()
     hlo, arg_bytes, peak = lowered.run()
@@ -247,6 +281,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
         "temp_bytes": int(peak - arg_bytes),
         "live_bytes": int(peak),
         "fits_hbm_80g": bool(peak <= HBM_PER_CHIP)}
+    if meta["shape"].kind == "decode":
+        rec["kv_dtype"] = meta["cfg"].kv_cache_dtype
+        with _fake_mode(lowered.fake_mode):
+            rec["memory_per_device"]["cache_bytes"] = _local_bytes(
+                lowered.args[2])
     rec["hlo"] = {"flops_per_device": hlo.flops,
                   "hbm_bytes_per_device": hlo.hbm_bytes,
                   "collective_bytes_per_device": hlo.collective_bytes}
@@ -266,8 +305,10 @@ def _print_summary(rec: Dict[str, Any]) -> None:
           f" ({rec['n_chips']} chips):"
           f" lower {rec.get('lower_s')}s run {rec.get('run_s')}s")
     if mem:
-        print(f"  mem/device: args {mem['argument_bytes']/2**30:.2f} GiB,"
-              f" temps {mem['temp_bytes']/2**30:.2f} GiB,"
+        cache = (f" (cache {mem['cache_bytes']/2**30:.2f} GiB,"
+                 f" {rec['kv_dtype']})" if "cache_bytes" in mem else "")
+        print(f"  mem/device: args {mem['argument_bytes']/2**30:.2f} GiB"
+              f"{cache}, temps {mem['temp_bytes']/2**30:.2f} GiB,"
               f" fits 80G HBM: {mem['fits_hbm_80g']}")
     if r:
         print(f"  roofline: compute {r['compute_s']*1e3:.3f} ms,"
@@ -286,8 +327,6 @@ def _sweep(outdir: str, mesh_kinds, archs, shapes) -> int:
             for shape in shapes:
                 cfg = get(arch)
                 ok, reason = cell_runnable(cfg, SHAPES_BY_NAME[shape])
-                if ok and SHAPES_BY_NAME[shape].kind == "decode":
-                    ok, reason = False, DECODE_SKIP
                 out = os.path.join(
                     outdir, f"{mesh_kind}__{arch}__{shape}.json")
                 if not ok:
@@ -346,6 +385,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--accum", type=int, default=0,
                     help="gradient-accumulation microbatches for train "
                     "cells (0 = per-arch default)")
+    ap.add_argument("--kv-dtype", choices=["bfloat16", "int8"], default=None,
+                    help="override a decode cell's KV cache dtype (default: "
+                    "the reference's rule, kv_dtype_rule)")
     args = ap.parse_args(argv)
 
     if args.sweep:
@@ -373,7 +415,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         rec = run_cell(args.arch, args.shape, args.mesh,
                        seq_shard=not args.no_seq_shard,
                        remat=not args.no_remat, moment_dtype=mdt,
-                       accum=accum)
+                       accum=accum, kv_dtype=args.kv_dtype)
         rec["ok"] = True
     except Exception:
         rec = {"arch": args.arch, "shape": args.shape, "mesh": args.mesh,

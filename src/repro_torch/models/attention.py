@@ -22,7 +22,12 @@ On a mesh (DTensor activations under ``shardctx.sharding_hints``) the
 reference's hints stand where it puts them: sequence-parallel q with
 replicated k/v on the dense branch, heads over tp on the chunked one. K5
 runs on each rank's heads and batch rows (``flash``); its causal mask needs
-the whole sequence, so q is never sequence-sharded there.
+the whole sequence, so q is never sequence-sharded there. Decode over a
+cache whose leaves are DTensors (``planner.cache_sharding``: the sequence
+split over tp) is the distributed flash-decode of ``shardctx.seq_decode``:
+the owner of the slot writes it, each rank attends over its own keys in
+f32, a chunk at a time (``online_softmax``), and the partials combine
+over tp.
 
 Shapes: x (B, S, d); q/k/v (B, S, H, hd); cache K/V (B, S_max, n_kv, hd).
 """
@@ -306,20 +311,99 @@ def decode_step(p: Params, x: torch.Tensor, cache: KVCache, cfg: AttnConfig,
     q, k, v = _qkv(p, x, cfg, pos)
     # The reference's dynamic_update_slice clamps a start past the end.
     slot = (length % T) if cfg.window is not None else min(length, T - 1)
+    if shardctx.is_dtensor(cache.k):
+        out = _decode_on_mesh(q, k, v, cache, cfg, slot)
+        return dense(p["wo"], out), cache._replace(length=length + 1)
     cache.k[:, slot] = _cache_store(k[:, 0], cache.k.dtype)
     cache.v[:, slot] = _cache_store(v[:, 0], cache.v.dtype)
-    kpos = torch.arange(T, device=x.device)
-    if cfg.window is not None:
-        # ring buffer: valid entries are the last min(len+1, T) writes
-        age = (slot - kpos) % T
-        valid = age < min(length + 1, T)
-    else:
-        valid = kpos <= length
+    valid = _valid(torch.arange(T, device=x.device), slot, length, T,
+                   cfg.window)
     mask = torch.where(valid, 0.0, NEG_INF)[None, None, :]    # (1,1,T)
     out = _sdpa(q, _cache_load(cache.k), _cache_load(cache.v),
                 mask.expand(B, 1, T), cfg.n_heads // cfg.n_kv)
     y = dense(p["wo"], out)
     return y, KVCache(k=cache.k, v=cache.v, length=length + 1)
+
+
+def _valid(kpos: torch.Tensor, slot: int, length: int, T: int,
+           window: Optional[int]) -> torch.Tensor:
+    """Which cache entries at positions ``kpos`` the token after ``length``
+    attends to, its own K/V written at ``slot``."""
+    if window is not None:
+        # ring buffer: valid entries are the last min(len+1, T) writes
+        age = (slot - kpos) % T
+        return age < min(length + 1, T)
+    return kpos <= length
+
+
+#: Keys a chunk in the mesh decode's online softmax: its f32 transients
+#: are a chunk of the rank's cache shard, never the shard.
+DECODE_KV_CHUNK = 1024
+
+
+def online_softmax(score, mix, valid: torch.Tensor,
+                   chunk: int = DECODE_KV_CHUNK):
+    """(m, l, o) in f32 of one query a head over the keys ``valid`` marks,
+    a chunk of keys at a time: ``score(sl) -> (s (B, X, C), ctx)`` gives
+    the scaled scores of keys ``sl`` and ``mix(p, ctx) -> (B, X, D)`` the
+    product of their weights with their values. m is the running max
+    (NEG_INF where no key is valid yet, and then l and o are 0), l the sum
+    of exp(s - m), o the weighted sum of values, as ``_sdpa_q_chunked``
+    carries them."""
+    m = l = o = None
+    n = valid.shape[0]
+    for lo in range(0, n, chunk):
+        sl = slice(lo, min(lo + chunk, n))
+        s, ctx = score(sl)
+        ok = valid[sl]
+        s = torch.where(ok, s, NEG_INF)
+        m2 = s.amax(dim=-1) if m is None else torch.maximum(m, s.amax(dim=-1))
+        pr = torch.where(ok, torch.exp(s - m2[..., None]), 0.0)
+        pv = mix(pr, ctx)
+        if m is None:
+            l, o = pr.sum(dim=-1), pv
+        else:
+            corr = torch.exp(m - m2)
+            l = corr * l + pr.sum(dim=-1)
+            o = o * corr[..., None] + pv
+        m = m2
+    return m, l, o
+
+
+def _decode_on_mesh(q, k, v, cache: KVCache, cfg: AttnConfig,
+                    slot: int) -> torch.Tensor:
+    """Decode attention over a cache on a mesh: the distributed
+    flash-decode of ``shardctx.seq_decode`` (the cache's sequence dim
+    split over tp), each rank's partial in f32 over its keys, in chunks.
+    Returns (B, 1, H*hd) in the cache's loaded dtype, on the rows."""
+    B, H, KV, hd = q.shape[0], cfg.n_heads, cfg.n_kv, cfg.head_dim
+    rep, T, length = H // KV, cache.k.shape[1], cache.length
+
+    def partial(ql, cl, kpos, _):
+        (qq,), (ck, cv) = ql, cl
+        b = qq.shape[0]
+        qg = qq[:, 0].float().reshape(b, KV, rep, hd)
+
+        def score(sl):
+            kk = _cache_load(ck[:, sl]).float()
+            s = torch.einsum("bgrd,btgd->bgrt", qg, kk) / math.sqrt(hd)
+            return s.reshape(b, H, -1), sl
+
+        def mix(pr, sl):
+            vv = _cache_load(cv[:, sl]).float()
+            o = torch.einsum("bgrt,btgd->bgrd", pr.reshape(b, KV, rep, -1),
+                             vv)
+            return o.reshape(b, H, hd)
+
+        return online_softmax(score, mix,
+                              _valid(kpos, slot, length, T, cfg.window))
+
+    out = shardctx.seq_decode(
+        partial, (q,), {"k": cache.k, "v": cache.v},
+        {"k": _cache_store(k, cache.k.dtype),
+         "v": _cache_store(v, cache.v.dtype)}, slot)
+    dtype = torch.bfloat16 if cache.v.dtype == torch.int8 else cache.v.dtype
+    return out.reshape(B, 1, H * hd).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +616,10 @@ def mla_decode_step(p: Params, x: torch.Tensor, cache: MLACache,
     c_new, kr_new = _mla_kv_a(p, x, cfg, pos)
     # The reference's dynamic_update_slice clamps a start past the end.
     slot = min(length, T - 1)
+    if shardctx.is_dtensor(cache.c_kv):
+        out = _mla_decode_on_mesh(p, q_nope, q_rope, c_new, kr_new, cache,
+                                  cfg, slot)
+        return dense(p["wo"], out), cache._replace(length=length + 1)
     cache.c_kv[:, slot] = c_new[:, 0].to(cache.c_kv.dtype)
     cache.k_rope[:, slot] = kr_new[:, 0, 0].to(cache.k_rope.dtype)
     k_nope, v = _mla_kv_b(p, cache.c_kv, cfg)
@@ -545,3 +633,40 @@ def mla_decode_step(p: Params, x: torch.Tensor, cache: MLACache,
     out = torch.einsum("bhst,bthd->bshd", w, v).reshape(B, 1, -1)
     return dense(p["wo"], out), MLACache(c_kv=cache.c_kv, k_rope=cache.k_rope,
                                          length=length + 1)
+
+
+def _mla_decode_on_mesh(p: Params, q_nope, q_rope, c_new, kr_new,
+                        cache: MLACache, cfg: MLAConfig, slot: int):
+    """MLA decode over a latent cache on a mesh: ``shardctx.seq_decode``
+    over ``c_kv`` and ``k_rope`` (their sequence dim split over tp), each
+    rank applying ``kv_norm`` and ``wkv_b`` (gathered whole: r x H x
+    (nope + v) weights) to its own latent rows, a chunk at a time, as the
+    plain decode applies them to the whole cache. Returns (B, 1, H*vd) in
+    the cache's dtype, on the rows."""
+    B, H, vd = q_nope.shape[0], cfg.n_heads, cfg.v_head_dim
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    length = cache.length
+
+    def partial(ql, cl, kpos, pp):
+        (qn, qr), (ckv, ckr) = ql, cl
+        qn, qr = qn[:, 0].float(), qr[:, 0].float()
+
+        def score(sl):
+            k_nope, v = _mla_kv_b(pp, ckv[:, sl], cfg)
+            s = (torch.einsum("bhd,bthd->bht", qn, k_nope.float())
+                 + torch.einsum("bhd,btd->bht", qr, ckr[:, sl].float())
+                 ) * scale
+            return s, v
+
+        def mix(pr, v):
+            return torch.einsum("bht,bthd->bhd", pr, v.float())
+
+        return online_softmax(score, mix, kpos <= length)
+
+    out = shardctx.seq_decode(
+        partial, (q_nope, q_rope),
+        {"c_kv": cache.c_kv, "k_rope": cache.k_rope},
+        {"c_kv": c_new.to(cache.c_kv.dtype),
+         "k_rope": kr_new[:, :, 0].to(cache.k_rope.dtype)}, slot,
+        params={"kv_norm": p["kv_norm"], "wkv_b": p["wkv_b"]})
+    return out.reshape(B, 1, H * vd).to(cache.c_kv.dtype)

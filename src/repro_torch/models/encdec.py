@@ -19,12 +19,16 @@ K/V in plain PyTorch, as the reference does outside any Pallas kernel.
 
 The cross attention takes the reference's ``shardctx.constrain_*`` hints
 (:159-161) where it runs the reference's ``_sdpa``; on a mesh its K5 call
-runs on each rank's heads (``shardctx.heads_local``). The reference's
+runs on each rank's heads (``shardctx.heads_local``). Decode on a mesh
+attends over the self cache's sequence shards (``attention.decode_step``)
+and over the cached encoder K/V split on the head dim, as the planner
+splits whisper's (``_cross_cached_on_mesh``). The reference's
 layers are stacked on axis 0 and scanned; here ``EncDec.enc`` and
 ``EncDec.dec`` are ``ModuleList``s of one entry a layer, in order.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -236,9 +240,44 @@ def _cross_attention(p: Params, q_in: torch.Tensor, enc: torch.Tensor,
 def _cross_attention_cached(p: Params, q_in: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     b, S, _ = q_in.shape
+    if shardctx.is_dtensor(k):
+        out = _cross_cached_on_mesh(B.dense(p["wq"], q_in), k, v, cfg)
+        return B.dense(p["wo"], out)
     q = B.dense(p["wq"], q_in).reshape(b, S, cfg.n_heads, cfg.hd)
     out = A._sdpa(q, k, v, None, cfg.n_heads // cfg.n_kv)
     return B.dense(p["wo"], out)
+
+
+def _cross_attention_hd_split(q, k, v, r: int, like, n_rep: int):
+    """The reference's unmasked ``_sdpa`` of the rank's queries q (B_l, 1,
+    H, hd) over its slice of the cached encoder K/V's head dim (B_l, T, KV,
+    hd/tp): the partial scores over the slice summed over tp (one
+    all-reduce of B_l x H x T f32, the partial sum GSPMD makes of a
+    contraction over a split dim), the softmax whole, p.v on the slice, and
+    the slices gathered over tp (B_l x H x hd). Returns (B_l, 1, H*hd)."""
+    b, H, hd = q.shape[0], q.shape[2], q.shape[3]
+    w = k.shape[-1]
+    qs = q[..., r * w:(r + 1) * w].reshape(b, 1, k.shape[2], n_rep, w)
+    logits = torch.einsum("bsgrd,btgd->bgrst", qs.float(), k.float())
+    logits = shardctx.tp_sum(logits, like.device_mesh) / math.sqrt(hd)
+    wts = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bgrst,btgd->bsgrd", wts, v)
+    return shardctx.tp_gather(out, 4, like).reshape(b, 1, H * hd)
+
+
+def _cross_cached_on_mesh(q, k, v, cfg: ArchConfig):
+    """The cached cross attention on a mesh, ``xk``/``xv`` split over tp on
+    the head dim (whisper's 1500 frames do not divide 16, so the planner
+    splits hd, ``_cross_attention_hd_split``) or whole (``_sdpa`` on the
+    rank's rows). Returns (B, 1, H*hd) on the rows."""
+    kl, split, r, n = shardctx.cache_local(k, "xk", (3,))
+    vl, _, _, _ = shardctx.cache_local(v, "xv", (3,))
+    ql = shardctx.rows(q)
+    ql = ql.reshape(ql.shape[0], 1, cfg.n_heads, cfg.hd)
+    n_rep = cfg.n_heads // cfg.n_kv
+    out = (_cross_attention_hd_split(ql, kl, vl, r, k, n_rep) if n > 1
+           else A._sdpa(ql, kl, vl, None, n_rep))
+    return shardctx.wrap_rows(out, q)
 
 
 def _port_tree(tree: Params, device, weight_dtype) -> Params:

@@ -165,12 +165,15 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig,
     each rank routes and computes its own groups (``shardctx.batch_local``,
     the reference's E < tp layout for every E: token-parallel experts, the
     expert weights all-gathered); the aux loss's two means are partial sums
-    over the ranks.
+    over the ranks. In the decode step (``sharding_hints(stationary=True)``)
+    the weights stay put instead (``_moe_stationary``).
     """
     G, S, d = x.shape
     E = cfg.n_experts
     split = shardctx.moe_group_split(S)
-    if shardctx.is_dtensor(x):
+    if shardctx.is_dtensor(x) and shardctx.weights_stay(x.device_mesh):
+        out, routed, prob = _moe_stationary(p, x, cfg)
+    elif shardctx.is_dtensor(x):
         out, (routed, prob), pl = shardctx.batch_local(
             lambda xl, lp: _moe_groups(lp, xl, cfg), x, p,
             seq_axis_dim=1 if split > 1 else None)
@@ -204,6 +207,32 @@ def dispatch(r: Routing, x: torch.Tensor, cfg: MoEConfig
     return counts, token, weight
 
 
+def _moe_stationary(p: Params, x, cfg: MoEConfig):
+    """The layer on a mesh with its weights where the planner put them (the
+    decode step: B tokens of one position). Gathering a whole expert stack
+    for B/dp tokens (2.8 GB a layer for mixtral, 32 GB for llama4) would
+    dwarf the step's cache, so the tokens move instead: every rank takes
+    all G*S tokens (their all-gather, G*S x d) and the router whole
+    (d x E), and ``_moe_groups`` routes them all alike, so every rank skips
+    the same experts, and multiplies them against the expert weights as
+    they lie (``shardctx.expert``, ``shardctx.matmul``). The output is put
+    back on x's rows, and the shared expert runs there. Returns (out
+    (G, S, d) on x's rows, routed (E,), prob (E,))."""
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    lp = {"router": p["router"].redistribute(mesh, rep).to_local(),
+          **{k: p[k] for k in ("wg", "wu", "wd")}}
+    out, routed, prob = _moe_groups(
+        lp, x.redistribute(mesh, rep).to_local(),
+        dataclasses.replace(cfg, shared_expert=False))
+    out = shardctx.as_dtensor(out, x, rep).redistribute(
+        mesh, shardctx.row_placements(x))
+    if cfg.shared_expert:
+        out = out + swiglu(p["shared"], x)
+    return out, routed, prob
+
+
 def _moe_groups(p: Params, x: torch.Tensor, cfg: MoEConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The layer on dispatch groups x (G, S, d): (out (G, S, d), the
@@ -212,7 +241,10 @@ def _moe_groups(p: Params, x: torch.Tensor, cfg: MoEConfig
 
     The combine weights are the gates rounded to x's dtype, as the
     reference's ``combine.astype(x.dtype)``; the weighted expert outputs
-    are summed in f32 and rounded to x's dtype once.
+    are summed in f32 and rounded to x's dtype once. x is a plain tensor;
+    the expert weights may be DTensors where they lie (``_moe_stationary``):
+    each expert's tokens then count as replicated on their mesh, and its
+    output comes back whole (an all-gather of n x d).
     """
     G, S, d = x.shape
     E = cfg.n_experts
@@ -227,10 +259,13 @@ def _moe_groups(p: Params, x: torch.Tensor, cfg: MoEConfig
         if n == 0:
             continue
         tok = token[start:start + n]
-        xe = xf[tok]
-        h = (F.silu(xe @ p["wg"][e].to(x.dtype))
-             * (xe @ p["wu"][e].to(x.dtype)))
-        ye = h @ p["wd"][e].to(x.dtype)
+        xe = shardctx.as_dtensor(xf[tok], p["wg"])
+        h = (F.silu(shardctx.matmul(xe, shardctx.expert(p["wg"], e)
+                                    .to(x.dtype)))
+             * shardctx.matmul(xe, shardctx.expert(p["wu"], e).to(x.dtype)))
+        ye = shardctx.matmul(h, shardctx.expert(p["wd"], e).to(x.dtype))
+        if shardctx.is_dtensor(ye):
+            ye = ye.full_tensor()
         out.index_add_(0, tok, ye.float() * weight[start:start + n, None])
         start += n
     out = out.to(x.dtype).reshape(G, S, d)

@@ -15,6 +15,15 @@ Each has a sequence form for the prefill and a one-step form for decode:
 None of these is a Pallas kernel in the reference; they are plain PyTorch
 here on every device.
 
+On a mesh (the decode state's leaves DTensors placed by
+``planner.cache_sharding``: rows over dp, the feature dim over tp or whole)
+each step's projections stay DTensor products and the recurrence runs on
+the rank's feature slice (``*_on_mesh``): elementwise updates on the
+slice, a partial sum where the step contracts the split dim (the mLSTM's
+normalizer), an all-gather where it needs the whole vector (the mLSTM's
+read-out, the sLSTM's recurrent product). Each rank writes its slice of
+the state in place.
+
 The reference's simplifications are kept (sigmoid input/forget gates with a
 max-normalizer in the mLSTM; a width-4 depthwise conv in the RG-LRU block),
 as are its clamps and its tanh-form GELU. Leaves the reference uses in f32
@@ -30,6 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import shardctx
 from .blocks import Params, _init, dense, dense_init, rmsnorm, rmsnorm_init
 
 F32 = torch.float32
@@ -157,12 +167,35 @@ def rglru_step(p: Params, x: torch.Tensor, state: RGLRUState,
     """Decode form. x (B,1,d); O(1) state update."""
     gate = _gelu(dense(p["wy"], x))
     xin = dense(p["wx"], x)
+    if shardctx.is_dtensor(state.h):
+        return _rglru_step_on_mesh(p, x, state, gate, xin)
     xb = _causal_depthwise_conv(xin, p["conv"], prefix=state.conv)
     new_conv = torch.cat([state.conv, xin], dim=1)[:, 1:]
     a, gated = _rglru_gates(p, xb)
     h = a[:, 0] * state.h + gated[:, 0]
     y = dense(p["wo"], h[:, None].to(x.dtype) * gate)
     return y, RGLRUState(h=h, conv=new_conv)
+
+
+def _rglru_step_on_mesh(p: Params, x, state: RGLRUState, gate, xin
+                        ) -> Tuple[torch.Tensor, RGLRUState]:
+    """``rglru_step`` on a mesh: the conv window and the recurrence on the
+    rank's slice of the width (the state's placements), elementwise; the
+    gates' products take the conv output whole over tp (``dense``).
+    ``conv`` and ``h`` are written in place (each may be split or whole
+    over tp, independently: recurrentgemma's tail ``h`` is whole)."""
+    conv, csplit, _, _ = shardctx.cache_local(state.conv, "conv", (2,))
+    h, _, _, _ = shardctx.cache_local(state.h, "h", (1,))
+    xl = shardctx.like_state(xin, state.conv)                  # (B_l,1,w_c)
+    kern = shardctx.tp_slice(p["conv"], None if csplit is None else 1)
+    xb = _causal_depthwise_conv(xl, kern, prefix=conv)
+    conv.copy_(torch.cat([conv, xl], dim=1)[:, 1:])
+    a, gated = _rglru_gates(p, shardctx.as_dtensor(xb, state.conv,
+                                                   state.conv.placements))
+    h.copy_(shardctx.like_state(a[:, 0], state.h) * h
+            + shardctx.like_state(gated[:, 0], state.h))
+    y = dense(p["wo"], state.h[:, None].to(x.dtype) * gate)
+    return y, state
 
 
 # ---------------------------------------------------------------------------
@@ -214,14 +247,19 @@ def mlstm_init_state(cfg: MLSTMConfig, batch: int,
                       n=torch.zeros((batch, H, hd), dtype=F32, device=device))
 
 
-def _mlstm_qkvgates(p: Params, x: torch.Tensor, cfg: MLSTMConfig):
+def _mlstm_qkvgates(p: Params, x: torch.Tensor, cfg: MLSTMConfig,
+                    heads: bool = True):
+    """q, k, v (B, S, H, hd), or (B, S, H*hd) without ``heads``; the
+    gates f, i (B, S, H) f32; the output gate (B, S, H*hd)."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     up = dense(p["wup"], x)
     gate = F.silu(dense(p["wgate"], x))
-    q = dense(p["wq"], up).reshape(B, S, H, hd) / math.sqrt(hd)
-    k = dense(p["wk"], up).reshape(B, S, H, hd) / math.sqrt(hd)
-    v = dense(p["wv"], up).reshape(B, S, H, hd)
+    q = dense(p["wq"], up) / math.sqrt(hd)
+    k = dense(p["wk"], up) / math.sqrt(hd)
+    v = dense(p["wv"], up)
+    if heads:
+        q, k, v = (t.reshape(B, S, H, hd) for t in (q, k, v))
     f = torch.sigmoid(dense(p["wf"], up).float())            # (B,S,H)
     i = torch.sigmoid(dense(p["wi"], up).float())
     return q, k, v, f, i, gate
@@ -279,6 +317,8 @@ def mlstm_step(p: Params, x: torch.Tensor, state: MLSTMState,
     """Decode form: S' = f S + i k v^T; h = (q S') / max(|q n'|, 1)."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
+    if shardctx.is_dtensor(state.S):
+        return _mlstm_step_on_mesh(p, x, state, cfg)
     q, k, v, f, i, gate = _mlstm_qkvgates(p, x, cfg)
     q1, k1, v1 = (t[:, 0].float() for t in (q, k, v))
     f1, i1 = f[:, 0], i[:, 0]                      # (B,H)
@@ -290,6 +330,42 @@ def mlstm_step(p: Params, x: torch.Tensor, state: MLSTMState,
     h = (num / den[..., None]).reshape(B, 1, H * hd).to(x.dtype)
     h = rmsnorm(p["norm"], h) * gate
     return dense(p["wdown"], h), MLSTMState(S=S2, n=n2)
+
+
+def _mlstm_step_on_mesh(p: Params, x, state: MLSTMState, cfg: MLSTMConfig
+                        ) -> Tuple[torch.Tensor, MLSTMState]:
+    """``mlstm_step`` on a mesh, ``S`` split over tp on its last dim (e, v's)
+    and ``n`` on its last (d, k's), or both whole. q, k, v and the gates of
+    the rank's rows come whole (their all-gather over tp, B_l x 3 H hd).
+    S' and n' are elementwise on the slices; q S' contracts d, which is
+    whole, so the read-out's e slice is local; q . n' contracts the split
+    d: a partial sum, one all-reduce (B_l x H f32). The read-out is
+    gathered over tp (B_l x H hd f32) for the norm. S and n are written in
+    place."""
+    H, hd = cfg.n_heads, cfg.head_dim
+    S, _, r, n = shardctx.cache_local(state.S, "S", (3,))
+    nn_, _, r2, n2 = shardctx.cache_local(state.n, "n", (2,))
+    if (r, n) != (r2, n2):
+        raise ValueError(f"mLSTM state split apart: S {state.S.placements},"
+                         f" n {state.n.placements}")
+    q, k, v, f, i, gate = _mlstm_qkvgates(p, x, cfg, heads=False)
+    q1, k1, v1 = (shardctx.rows(t)[:, 0].float().reshape(-1, H, hd)
+                  for t in (q, k, v))
+    f1, i1 = (shardctx.rows(t)[:, 0] for t in (f, i))       # (B_l,H)
+    w = S.shape[-1]
+    sl = slice(r * w, (r + 1) * w)
+    S.copy_(f1[..., None, None] * S
+            + i1[..., None, None] * k1[..., :, None] * v1[..., None, sl])
+    nn_.copy_(f1[..., None] * nn_ + i1[..., None] * k1[..., sl])
+    num = torch.einsum("bhd,bhde->bhe", q1, S)
+    den = torch.einsum("bhd,bhd->bh", q1[..., sl], nn_)
+    if n > 1:
+        den = shardctx.tp_sum(den, state.S.device_mesh)
+        num = shardctx.tp_gather(num, 2, state.S)
+    h = num / torch.clamp_min(den.abs(), 1.0)[..., None]
+    h = shardctx.wrap_rows(h.reshape(h.shape[0], 1, H * hd).to(x.dtype), x)
+    h = rmsnorm(p["norm"], h) * gate
+    return dense(p["wdown"], h), state
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +453,31 @@ def slstm_block(p: Params, x: torch.Tensor, cfg: SLSTMConfig
 
 def slstm_step(p: Params, x: torch.Tensor, state: SLSTMState,
                cfg: SLSTMConfig) -> Tuple[torch.Tensor, SLSTMState]:
+    if shardctx.is_dtensor(state.h):
+        return _slstm_step_on_mesh(p, x, state)
     gx = x[:, 0].float() @ _gate_weights(p, SLSTM_GATES)
     st2 = _slstm_cell(gx, _gate_weights(p, SLSTM_RECURRENT), state)
     return _slstm_out(p, st2.h[:, None].to(x.dtype)), st2
+
+
+def _slstm_step_on_mesh(p: Params, x, state: SLSTMState
+                        ) -> Tuple[torch.Tensor, SLSTMState]:
+    """``slstm_step`` on a mesh, ``c``, ``n``, ``h`` split over tp on their
+    feature dim (or whole). Each gate's two products are DTensor products
+    in f32 (``shardctx.matmul``): the recurrent one takes h whole (its
+    all-gather over tp, B_l x d f32) and gives the rank's feature slice;
+    the cell's update is elementwise on the slice; c, n, h are written in
+    place."""
+    c, _, _, _ = shardctx.cache_local(state.c, "c", (1,))
+    nn_, _, _, _ = shardctx.cache_local(state.n, "n", (1,))
+    h, _, _, _ = shardctx.cache_local(state.h, "h", (1,))
+    xf = x[:, 0].float()
+    z, i, f = (shardctx.like_state(
+        shardctx.matmul(xf, p[w]["w"].float())
+        + shardctx.matmul(state.h, p[r]["w"].float()), state.h)
+        for w, r in zip(SLSTM_GATES, SLSTM_RECURRENT))
+    z, i, f = torch.tanh(z), torch.sigmoid(i), torch.sigmoid(f)
+    c.copy_(f * c + i * z)
+    nn_.copy_(f * nn_ + i)
+    h.copy_(c / torch.clamp_min(nn_.abs(), 1.0))
+    return _slstm_out(p, state.h[:, None].to(x.dtype)), state

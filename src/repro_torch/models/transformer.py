@@ -390,7 +390,10 @@ class Transformer(nn.Module):
                     embeds: Optional[torch.Tensor] = None,
                     ) -> Tuple[torch.Tensor, Any]:
         """token: (B, 1) int (or embeds (B, 1, d)); returns (logits, cache).
-        The caches are updated in place (``attention.decode_step``)."""
+        The caches are updated in place (``attention.decode_step``). On a
+        mesh (DTensor cache leaves and weights, ``steps.make_decode_step``)
+        each block reads and writes its own shards of its cache; nothing
+        here changes."""
         cfg = self.cfg
         x = embeds if embeds is not None else B.embed(self.embedding, token)
         new = []

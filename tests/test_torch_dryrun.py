@@ -16,6 +16,17 @@ host devices set before jax starts).
     step count and the batch, counted here from the planner's specs, and
     the record's keys.
 
+  * ``run_cell`` of reduced qwen3-14b's decode step (B 8, a cache of
+    T 4096) on the same fake mesh: per-device FLOPs within 5% of the
+    reference's ``analyze_hlo`` of the same cell (its decode lowering:
+    ``cache_sharding``, the cache donated); its argument bytes equal
+    (exact) to rank 0's shards of the bf16 weights, the cache and the
+    token, counted here from the planner's specs; its peak below the
+    arguments plus the rank's cache (the cache is written in place, never
+    copied); and a reduced mixtral-8x7b ``long_500k`` cell (B 1, the
+    window set to 32 so that the ring splits on its sequence as at full
+    size) runs.
+
 In this process: the op counter's live and peak bytes follow the
 tensors' lifetimes, on real and on fake tensors (exact).
 """
@@ -113,6 +124,78 @@ REF = textwrap.dedent("""
 """) % (S, B)
 
 
+DEC_S, DEC_B = 4096, 8
+
+PORT_DECODE = textwrap.dedent("""
+    import dataclasses, json
+    import torch
+    from repro_torch._tree import flatten_with_paths
+    from repro_torch.configs import ShapeSpec, get_reduced
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.planner import (cache_sharding,
+                                                 params_sharding)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_group, make_mesh
+    from repro_torch.models import build
+    init_group("fake", world_size=4)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    cfg, shape = get_reduced("qwen3-14b"), ShapeSpec("d", %d, %d, "decode")
+    out = {"cell": dryrun.run_cell("qwen3-14b", "d", "single", mesh=mesh,
+                                   cfg=cfg, shape=shape)}
+    sizes = {"data": 2, "model": 2}
+
+    def shard_bytes(t, spec):
+        n = 1
+        spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+        for dim, e in zip(t.shape, spec):
+            k = 1
+            for a in (e if isinstance(e, tuple) else (e,) if e else ()):
+                k *= sizes[a]
+            n *= -(-dim // k)
+        return n * t.element_size()
+
+    total = 0
+    # the serving weights: bf16 matmuls, the f32 leaves f32
+    params = build(cfg, device="cpu").params()
+    specs = dict(flatten_with_paths(params_sharding(params, mesh, cfg=cfg)))
+    for path, t in flatten_with_paths(params):
+        total += shard_bytes(t, specs[path].spec)
+    cache = steps.cache_specs(cfg, shape)
+    c_specs = dict(flatten_with_paths(cache_sharding(
+        cache, mesh, batch_size=shape.global_batch, cfg=cfg)))
+    cache_bytes = 0
+    for path, t in flatten_with_paths(cache):
+        if isinstance(t, torch.Tensor):
+            cache_bytes += shard_bytes(t, c_specs[path].spec)
+    tok = steps.input_specs(cfg, shape)["token"]
+    total += cache_bytes + shard_bytes(
+        tok, steps.batch_shardings(cfg, shape, mesh)["token"].spec)
+    out["arg_bytes"], out["cache_bytes"] = total, cache_bytes
+    mix = dataclasses.replace(get_reduced("mixtral-8x7b"), window=32)
+    out["long"] = dryrun.run_cell("mixtral-8x7b", "long", "single",
+                                  mesh=mesh, cfg=mix,
+                                  shape=ShapeSpec("long", 524288, 1,
+                                                  "decode"))
+    print("RESULT" + json.dumps(out))
+""") % (DEC_S, DEC_B)
+
+REF_DECODE = textwrap.dedent("""
+    import os, json
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import jax
+    jax.devices()
+    from repro.configs import ShapeSpec, get_reduced
+    from repro.launch import dryrun, hlo_analysis
+    from repro.launch.mesh import make_mesh
+    dryrun.get = get_reduced
+    dryrun.SHAPES_BY_NAME = {"d": ShapeSpec("d", %d, %d, "decode")}
+    lowered, _ = dryrun.lower_cell("qwen3-14b", "d",
+                                   make_mesh((2, 2), ("data", "model")))
+    h = hlo_analysis.analyze_hlo(lowered.compile().as_text())
+    print("RESULT" + json.dumps({"flops": h.flops}))
+""") % (DEC_S, DEC_B)
+
+
 def _run(script):
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
                        text=True, timeout=600,
@@ -155,6 +238,23 @@ def test_op_counter_and_dry_run_cell_against_the_reference():
     assert roof["unknown_trip_whiles"] == 0
     assert roof["hlo_flops_global"] == flops * 4
     assert roof["collectives"]["all-gather"]["bytes"] > 0
+
+
+def test_decode_cell_against_the_reference():
+    port, ref = _run(PORT_DECODE), _run(REF_DECODE)
+    rec = port["cell"]
+    flops = rec["hlo"]["flops_per_device"]
+    assert abs(flops - ref["flops"]) <= FLOP_RTOL * ref["flops"], (
+        flops, ref["flops"])
+    assert rec["kv_dtype"] == "bfloat16"
+    mem = rec["memory_per_device"]
+    assert mem["argument_bytes"] == port["arg_bytes"]
+    assert mem["cache_bytes"] == port["cache_bytes"]
+    assert mem["live_bytes"] < mem["argument_bytes"] + mem["cache_bytes"]
+    long = port["long"]
+    assert long["n_chips"] == 4 and long["kv_dtype"] == "bfloat16"
+    assert long["memory_per_device"]["cache_bytes"] > 0
+    assert long["hlo"]["flops_per_device"] > 0
 
 
 @pytest.mark.parametrize("fake", [False, True], ids=["real", "fake"])
