@@ -149,15 +149,31 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      (``launch.train`` places the weights, moments and batches on it);
      (e) ``python -m repro_torch.launch.dryrun`` for qwen3-14b
      ``train_4k`` on ``single``, mixtral-8x7b ``train_4k`` on ``multi``,
-     qwen1.5-32b ``decode_32k`` on ``single`` and mixtral-8x7b
-     ``long_500k`` on ``multi``, four CPU subprocesses started before
-     phase 8 (no card), each record's memory a device and roofline terms
-     printed (a decode record's cache must be exactly its share and its
-     peak below its arguments plus its cache); (f) at the end of phase 8,
+     qwen1.5-32b ``decode_32k`` on ``single``, mixtral-8x7b
+     ``long_500k`` on ``multi``, and llama4-maverick ``decode_32k`` and
+     ``train_4k`` on ``single`` (expert-parallel: below DRYRUN_LIMITS'
+     bounds, 1e12 FLOP and 1e9 collective bytes a rank in decode, 1e12
+     reduce-scatter bytes and a peak of 80 GB in train), six CPU
+     subprocesses started before
+     phase 8 (no card), each record's memory a device, roofline terms and
+     collectives printed (a decode record's cache must be exactly its
+     share and its peak below its arguments plus its cache); (f) at the
+     end of phase 8,
      ``make_decode_step`` on the same mesh with a cache placed by
      ``cache_sharding``, over phase 8's decode tokens: its logits against
      phase 8's decode (within MESH_DECODE_TOL, every row's top-1 token
-     phase 8's) and its ms a token beside phase 8's.
+     phase 8's) and its ms a token beside phase 8's; (g) in phase 9, on
+     llama4's one pattern group, expert parallelism on the same one-rank
+     mesh (tp = 1 divides its 128 experts: the MoE's exchange, a one-rank
+     all-to-all): the unsharded decode of 16 tokens first, then the
+     weights placed by ``params_sharding`` and ``make_prefill(mesh=...)``
+     of phase 9's tokens (K5 exactly 2 times; logits against phase 9's,
+     ``torch.equal`` or within FLASH_TOL; its dropped choices equal to
+     phase 9's; the MoE layer's ms beside phase 9's), and
+     ``make_decode_step`` on the mesh over the same 16 tokens, each step
+     routed to the unsharded decode's experts, within MESH_DECODE_TOL of
+     the unsharded decode with every row's top-1 token equal; each ms
+     beside its unsharded twin.
 It then prints the ``kernels`` JSON line (K5 bf16's numbers are phase 8's:
 its launches in the prefill and its time at one layer's shapes, with those
 of the phase-5/6 entry point under ``entry_point``, and the in-model calls
@@ -1389,6 +1405,17 @@ LM_DECODE_TOL = 0.06
 # decode against the port's unsharded decode holds it to this constant
 # (tests/test_torch_mesh_decode.py's MESH_TOL).
 MESH_DECODE_TOL = 0.015
+# A MoE decode pinned to another run's experts (``moe.routing_log``): its
+# own router may choose otherwise only at a near-tie, at most MOE_MAX_FLIPS
+# (token, layer, step) choices a run, each within MOE_TIE_MARGIN of its own
+# probabilities (its own top-k's less the pinned experts'). Two decodes
+# held within 1.5-2.5% of the largest logit of each other feed the router
+# inputs that far apart, which moves a probability by up to about 1e-2
+# (measured on 4 CPU ranks: 0.0111 at most, reduced llama4's mesh decode
+# against the reference's picks); a misrouted token is off by order 1. The
+# CPU test of the mesh decode holds its picks to the same constants
+# (tests/test_torch_mesh_decode.py).
+MOE_MAX_FLIPS, MOE_TIE_MARGIN = 2, 0.02
 
 
 def _lm_flops(cfg, b: int, s: int) -> float:
@@ -1984,7 +2011,9 @@ def drive_llama4(dev) -> dict:
     b, s = 1, LM_FAMILIES[name][1]
     rng = np.random.default_rng(SEED + 11)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
-    logits, counts = _counted_prefill(model, cfg, b, s, toks=toks)
+    fwd = []
+    with M.routing_log(fwd):
+        logits, counts = _counted_prefill(model, cfg, b, s, toks=toks)
     # The shared expert on the card: the MoE layer's output for a token whose
     # only choice capacity dropped is the shared expert's alone.
     x = B.embed(model.embedding, toks)
@@ -2003,15 +2032,201 @@ def drive_llama4(dev) -> dict:
                              f"shared expert alone must serve them")
     kept = r.keep[0, :, 0]
     moved = float((out[0, kept].float() - shared[0, kept].float()).abs().max())
+    moe_ms = _time_ms(lambda: M.moe_forward(l1["moe"], h, mcfg), iters=3,
+                      warmup=1, graph=False)["ms"]
     print(f"[lm9] {name} MoE layer: {len(drop)} of {s} tokens dropped by "
           f"capacity {r.capacity} ({cfg.n_experts} experts, top-"
           f"{cfg.top_k}), each served by the "
           f"shared expert alone (equal); the routed expert moves the kept "
-          f"ones by up to {moved:.3f}")
+          f"ones by up to {moved:.3f}; the layer {moe_ms:.3f} ms")
+    del out, shared, x
+    mesh = drive_llama4_mesh(dev, model, cfg, toks, logits, h, dict(
+        dropped=sum(q.dropped for q in fwd), moe_ms=moe_ms))
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"[lm9] {name} peak memory {peak:.3f} GB")
     return dict(launches=counts["flash_attn"], dropped=len(drop),
-                weight_bytes=w_bytes, peak_gb=peak)
+                moe_layer_ms=moe_ms, weight_bytes=w_bytes, peak_gb=peak,
+                mesh=mesh)
+
+
+def drive_llama4_mesh(dev, model, cfg, toks, want, h, plain: dict) -> dict:
+    """Phase 12g, on phase 9's llama4 (one pattern group, 128 experts):
+    expert parallelism on the one-rank (1, 1) nccl mesh, where tp = 1
+    divides E, so the MoE takes the exchange (``shardctx.expert_parallel``:
+    a one-rank all-to-all over tp) in the prefill and in the decode.
+    First the unsharded decode of the prefill's first LM_DECODE tokens from
+    an empty cache, its routing recorded; then the weights placed by
+    ``params_sharding`` (wrapped as DTensors, not copied),
+    ``make_prefill(mesh=...)`` of phase 9's tokens with the launch counts
+    set to 0 just before and read just after (K5 exactly 2 times), its
+    logits against phase 9's (``torch.equal``, else within FLASH_TOL) and
+    its dropped choices beside phase 9's; the MoE layer on the mesh timed
+    beside phase 9's (the padded (E, 1, C, d) buffer computes E·C rows
+    where phase 9 computes S); then ``make_decode_step`` on the mesh with a
+    cache placed by ``cache_sharding``, each step routed to the unsharded
+    decode's experts (``moe.routing_log``: a router near-tie that the two
+    paths round apart would otherwise move a token by order 1; where the
+    mesh's own router chose otherwise is printed and gated), held to the
+    unsharded decode within MESH_DECODE_TOL with every row's top-1 token
+    equal, and the mesh's own router choosing otherwise at most
+    MOE_MAX_FLIPS times, each a near-tie (MOE_TIE_MARGIN).
+    Each ms is printed beside its unsharded twin."""
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch._tree import flatten_with_paths, unflatten
+    from repro_torch.distributed import shardctx, steps
+    from repro_torch.distributed.planner import (PlanConfig, cache_sharding,
+                                                 shard_model, shard_tensor)
+    from repro_torch.kernels import launches
+    from repro_torch.launch.mesh import axis_sizes, make_host_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    b = toks.shape[0]
+    n = LM_DECODE
+
+    def decode(step, mdl, cache, pick=None):
+        out, log = [], []
+        with M.routing_log(log, pick):
+            for t in range(n):
+                lg, cache = step(mdl, toks[:, t:t + 1], cache)
+                out.append(lg.full_tensor() if shardctx.is_dtensor(lg)
+                           else lg)
+        torch.cuda.synchronize()
+        return out, log, cache
+
+    def timed(step, mdl, make_cache) -> float:
+        cache = make_cache()
+        it = iter(range(n))
+
+        def one():
+            nonlocal cache
+            t = next(it)
+            _, cache = step(mdl, toks[:, t:t + 1], cache)
+
+        one()
+        return _time_ms(one, iters=n - 1, warmup=0, graph=False)["ms"]
+
+    pre0_ms = _time_ms(lambda: model(toks), iters=3, warmup=1,
+                       graph=False)["ms"]
+    plain_step = steps.make_decode_step(cfg)
+    dec0, log0, _ = decode(plain_step, model, model.init_cache(b, LM_CACHE))
+    dec0_ms = timed(plain_step, model, lambda: model.init_cache(b, LM_CACHE))
+
+    mesh = make_host_mesh(device=dev)
+    if mesh.size() != 1 or axis_sizes(mesh)["model"] != 1:
+        raise AssertionError(f"phase 12g: host mesh {axis_sizes(mesh)}")
+    before = torch.cuda.memory_allocated(dev)
+    shard_model(model, mesh)
+    grown = torch.cuda.memory_allocated(dev) - before
+    exchange = {"expert-parallel exchange"}
+    prefill = steps.make_prefill(cfg, mesh=mesh, device=dev)
+    batch = {"tokens": toks}
+    prefill(model, batch)                   # first call: sharding rules
+    torch.cuda.synchronize()
+    mlog = []
+    launches.reset()
+    with M.routing_log(mlog):
+        got = prefill(model, batch)
+    torch.cuda.synchronize()
+    counts = launches.snapshot()
+    layouts = [q.layout for q in mlog]
+    if counts != {"flash_attn": cfg.n_layers} or set(layouts) != exchange:
+        raise AssertionError(f"phase 12g: the mesh prefill launched {counts}"
+                             f" (want flash_attn x {cfg.n_layers}) through "
+                             f"the MoE layouts {layouts} (want {exchange})")
+    got = got.full_tensor()
+    same = bool(torch.equal(got, want))
+    diff = 0.0 if same else _close(got, want, FLASH_TOL["bfloat16"])
+    dropped = sum(q.dropped for q in mlog)
+    if dropped != plain["dropped"]:
+        raise AssertionError(f"phase 12g: the mesh prefill dropped {dropped}"
+                             f" choices, phase 9 {plain['dropped']}")
+    pre_ms = _time_ms(lambda: prefill(model, batch), iters=3, warmup=1,
+                      graph=False)["ms"]
+    mcfg = T._moe_cfg(cfg)
+    l1 = model.layers[1]
+    hd = distribute_tensor(h, mesh, [Replicate(), Replicate()])
+    with torch.no_grad(), steps._mesh_context(mesh, PlanConfig()):
+        moe_ms = _time_ms(lambda: M.moe_forward(l1["moe"], hd, mcfg),
+                          iters=3, warmup=1, graph=False)["ms"]
+    E, C = cfg.n_experts, mlog[0].capacity
+
+    def placed_cache():
+        cache = model.init_cache(b, LM_CACHE)
+        specs = flatten_with_paths(cache_sharding(cache, mesh, batch_size=b,
+                                                  cfg=cfg))
+        return unflatten(cache, [
+            shard_tensor(t, sh) if isinstance(t, torch.Tensor) else t
+            for (_, t), (_, sh) in zip(flatten_with_paths(cache), specs)])
+
+    step = steps.make_decode_step(cfg)
+    dec1, log1, _ = decode(step, model, placed_cache(),
+                           lambda i: (log0[i].expert_ids, log0[i].keep))
+    layouts = {q.layout for q in log1}
+    if layouts != exchange or len(log1) != len(log0):
+        raise AssertionError(f"phase 12g: the mesh decode's MoE layouts "
+                             f"{sorted(layouts)}, {len(log1)} MoE calls "
+                             f"against the unsharded decode's {len(log0)}")
+    # (MoE call, margin) of each token the mesh's own router sent elsewhere
+    own = []
+    for t, (p1, p0) in enumerate(zip(log1, log0)):
+        mine, pinned = p1.expert_ids, p0.expert_ids
+        apart = (mine.sort(-1).values != pinned.sort(-1).values).any(-1)
+        margin = (p1.probs.gather(-1, mine).sum(-1)
+                  - p1.probs.gather(-1, pinned).sum(-1))
+        own += [(t, float(m)) for m in margin[apart]]
+    if len(own) > MOE_MAX_FLIPS or any(m > MOE_TIE_MARGIN for _, m in own):
+        raise AssertionError(f"phase 12g: the mesh decode's own router chose "
+                             f"other experts than the unsharded decode at "
+                             f"(MoE call, margin) {own}: more than "
+                             f"{MOE_MAX_FLIPS}, or past the near-tie margin "
+                             f"{MOE_TIE_MARGIN}")
+    rel = max(float((g - w).abs().max() / w.abs().max())
+              for g, w in zip(dec1, dec0))
+    top1 = float(torch.cat([(g.argmax(-1) == w.argmax(-1)).float()
+                            for g, w in zip(dec1, dec0)]).mean())
+    if (not all(bool(torch.isfinite(g).all()) for g in dec1)
+            or rel > MESH_DECODE_TOL or top1 < 1.0):
+        raise AssertionError(f"phase 12g: mesh decode off the unsharded "
+                             f"one: max |diff| / max |logit| {rel:.4e} "
+                             f"(bound {MESH_DECODE_TOL}), top-1 agreement "
+                             f"{top1:.4f} (bound 1)")
+    dec1_ms = timed(step, model, placed_cache)
+    print(f"[mesh] {_card_line()}")
+    print(f"[mesh] 12g {cfg.name} (one pattern group, {E} experts) on the "
+          f"one-rank mesh, phase 9's weights placed by params_sharding as "
+          f"DTensors ({grown / 1e9:.3f} GB allocated by the placing): "
+          f"make_prefill(mesh=...) B={b} S={toks.shape[1]} launches "
+          f"{counts}, the MoE expert-parallel (the exchange: a one-rank "
+          f"all-to-all); logits "
+          + ("equal to phase 9's (torch.equal)" if same else
+             f"within FLASH_TOL of phase 9's (max |diff| {diff:.3e}: the "
+             f"padded expert products round apart)")
+          + f"; {dropped} choices dropped beside phase 9's "
+          f"{plain['dropped']}; {pre_ms:.3f} ms a prefill beside phase "
+          f"9's {pre0_ms:.3f} ms; the MoE layer "
+          f"{moe_ms:.3f} ms ({E} x C={C} = {E * C} padded expert rows) "
+          f"beside phase 9's {plain['moe_ms']:.3f} ms ({toks.shape[1]} "
+          f"rows)")
+    print(f"[mesh] 12g make_decode_step on the mesh ({LM_DECODE} steps from "
+          f"an empty {LM_CACHE}-token cache placed by cache_sharding, each "
+          f"routed to the unsharded decode's experts) against the unsharded "
+          f"decode: max |diff| / max |logit| {rel:.4e} (bound "
+          f"{MESH_DECODE_TOL}), top-1 agreement {top1:.4f} (bound 1); "
+          f"(MoE call, margin) where the mesh's own router chose other "
+          f"experts: {own or 'none'} (bound {MOE_MAX_FLIPS}, each within "
+          f"{MOE_TIE_MARGIN})"
+          f"; {dec1_ms:.3f} ms a token beside the unsharded {dec0_ms:.3f} "
+          f"ms (mean of tokens 1..{n - 1})")
+    return dict(launches=counts["flash_attn"], equal=same, max_diff=diff,
+                dropped=dropped, phase9_dropped=plain["dropped"],
+                prefill_ms=pre_ms, unsharded_prefill_ms=pre0_ms,
+                moe_layer_ms=moe_ms,
+                phase9_moe_layer_ms=plain["moe_ms"], padded_rows=E * C,
+                decode_rel_err=rel, decode_top1=top1,
+                decode_own_picks_differ=own, decode_ms=dec1_ms,
+                unsharded_decode_ms=dec0_ms, placed_bytes=grown)
 
 
 def drive_qwen2_vl(dev) -> dict:
@@ -2685,15 +2900,38 @@ def drive_launch_train(dev) -> dict:
 
 # The dry run's cells (python -m repro_torch.launch.dryrun): a dense arch's
 # train step on the one-pod mesh, the MoE arch's on the two-pod mesh
-# (EP/FSDP over the pod axis), and two decode steps: qwen1.5-32b's, whose
-# int8 cache is the largest a rank holds (10.7 GB), and mixtral's at
-# 524k tokens on the two-pod mesh (the ring buffer, B = 1, the MoE in
-# decode). Each runs on the CPU alone, under FakeTensorMode.
+# (FSDP over the pod axis; mixtral's 8 experts over 16 run token-parallel),
+# and three decode steps: qwen1.5-32b's, whose int8 cache is the largest a
+# rank holds (10.7 GB), mixtral's at 524k tokens on the two-pod mesh (the
+# ring buffer, B = 1, the MoE in decode), and llama4's (128 experts over
+# 16: expert-parallel, each rank multiplying its own 8 experts where they
+# lie). Each runs on the CPU alone, under FakeTensorMode.
 DRYRUN_CELLS = (("qwen3-14b", "train_4k", "single"),
                 ("mixtral-8x7b", "train_4k", "multi"),
                 ("qwen1.5-32b", "decode_32k", "single"),
-                ("mixtral-8x7b", "long_500k", "multi"))
+                ("mixtral-8x7b", "long_500k", "multi"),
+                ("llama4-maverick-400b-a17b", "decode_32k", "single"),
+                ("llama4-maverick-400b-a17b", "train_4k", "single"))
 DRYRUN_TIMEOUT_S = 600
+# Upper bounds on a cell's record (name -> (path in the record, bound)).
+# llama4's decode with the experts where they lie multiplies each rank's 8
+# experts on the rows of its 16 data peers (3.9e11 FLOP) and moves rows
+# and partial sums, no expert weight (3.7e8 bytes); every rank multiplying
+# all 128 experts, each fetched from its owner, read 6.2e12 FLOP and
+# 8.2e10 bytes. Its train step reduce-scatters a rank's own 8 experts'
+# gradient over data (6.97e11 bytes in all), where gathering the whole
+# stack to every rank reduce-scattered 6.9e12, and its peak fits the
+# card's 80 GB, where the whole f32 stack and its gradient took 157 GiB.
+DRYRUN_LIMITS = {
+    ("llama4-maverick-400b-a17b", "decode_32k", "single"): {
+        "FLOP a rank": (("hlo", "flops_per_device"), 1e12),
+        "collective bytes a rank": (("hlo", "collective_bytes_per_device"),
+                                    1e9)},
+    ("llama4-maverick-400b-a17b", "train_4k", "single"): {
+        "reduce-scatter bytes a rank": (
+            ("roofline", "collectives", "reduce-scatter", "bytes"), 1e12),
+        "peak live bytes a rank": (("memory_per_device", "live_bytes"),
+                                   80e9)}}
 
 
 def start_dryruns() -> list:
@@ -2749,21 +2987,31 @@ def finish_dryruns(procs: list) -> list:
     DRYRUN_TIMEOUT_S (``main`` stops any still running), or if a record's
     argument bytes fall short of 90% of what a rank must hold (the leaves a
     rank holds whole only add to it): for a train cell its share of the
-    f32 weights and their two f32 moments, 12 bytes a weight over the
-    ranks; for a decode cell its share of the bf16 weights and of the
+    f32 weights and their two moments (in the record's moment dtype: f32,
+    12 bytes a weight, or bf16 for llama4, 8), over the ranks; for a
+    decode cell its share of the bf16 weights and of the
     cache (``_decode_floor``). A decode record also fails if its cache
     bytes are not that share, or if its peak reaches its arguments plus
     its cache: that would be a second copy of the cache (the step writes
     it in place, as the reference donates it)."""
     from repro_torch.configs import get
     recs, failed = [], []
+    if procs:
+        print(f"[mesh] dryrun: phases 8-11 took "
+              f"{time.perf_counter() - procs[0][5]:.1f} s from the cells' "
+              f"start; "
+              f"{sum(p.poll() is None for *_, p in procs)} of {len(procs)} "
+              f"cells still running")
     for arch, shape, mesh, rec, log, t0, p in procs:
+        started = time.time() - (time.perf_counter() - t0)
         left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0))
         try:
             code = p.wait(timeout=left)
         except subprocess.TimeoutExpired:
             code = "timeout"
-        wall = time.perf_counter() - t0
+        # the cell's own wall: from its start to its record's write
+        wall = (rec.stat().st_mtime - started if rec.exists()
+                else time.perf_counter() - t0)
         if code != 0 or not rec.exists():
             tail = log.read_text()[-1500:] if log.exists() else ""
             failed.append(f"{arch} x {shape} x {mesh}: exit {code}\n"
@@ -2773,7 +3021,9 @@ def finish_dryruns(procs: list) -> list:
         m, roof = r["memory_per_device"], r["roofline"]
         cache = ""
         if shape.startswith("train"):
-            floor = 0.9 * 12 * get(arch).param_count() / r["n_chips"]
+            moment = 2 if r["moment_dtype"] == "bfloat16" else 4
+            floor = (0.9 * (4 + 2 * moment) * get(arch).param_count()
+                     / r["n_chips"])
         else:
             w_share, c_share = _decode_floor(arch, shape, mesh)
             floor = 0.9 * (w_share + c_share)
@@ -2792,6 +3042,14 @@ def finish_dryruns(procs: list) -> list:
             failed.append(f"{arch} x {shape} x {mesh}: arguments "
                           f"{m['argument_bytes']} bytes a rank, under "
                           f"{floor:.0f}")
+        for what, (path, limit) in DRYRUN_LIMITS.get((arch, shape, mesh),
+                                                    {}).items():
+            got = r
+            for key in path:
+                got = got[key]
+            if got >= limit:
+                failed.append(f"{arch} x {shape} x {mesh}: {what} "
+                              f"{got:.4e}, not below {limit:.0e}")
         print(f"[mesh] dryrun {arch} x {shape} x {mesh} ({r['n_chips']} "
               f"fake ranks, torch {r['torch']}, on the host CPU, "
               f"{wall:.1f} s from start): memory a device: arguments "
@@ -2806,6 +3064,9 @@ def finish_dryruns(procs: list) -> list:
               f"{roof['memory_s'] * 1e3:.2f} ms, collective "
               f"{roof['collective_s'] * 1e3:.2f} ms -> {roof['dominant']};"
               f" useful-FLOP ratio {roof['useful_flop_ratio']:.3f}")
+        print(f"[mesh] dryrun {arch} x {shape} x {mesh}: collectives "
+              + ", ".join(f"{k} {int(v['count'])} calls {v['bytes']:.4e} "
+                          f"bytes" for k, v in roof["collectives"].items()))
         recs.append(dict(arch=arch, shape=shape, mesh=mesh, wall_s=wall,
                          kv_dtype=r.get("kv_dtype"),
                          memory_per_device=m, hlo=r["hlo"],
@@ -3090,6 +3351,9 @@ def _phases_8_to_12(dev, err: dict, kernels: list, shapes: dict,
         "train_step_launches": train["train_k5_launches"]}
     k5["paths"][LM_ARCH + " mesh prefill"] = {"launches": mesh["launches"],
                                               "ms": mesh["ms"]}
+    ep = k5["families"]["llama4-maverick-400b-a17b"]["mesh"]
+    k5["paths"]["llama4-maverick-400b-a17b mesh prefill"] = {
+        "launches": ep["launches"], "ms": ep["prefill_ms"]}
     k5["train"] = train
     k5["mesh"] = mesh
 

@@ -42,10 +42,10 @@ named with the collectives it adds (the dry run counts them):
     its own query rows against the whole k/v: the all-gather of k/v a
     layer (and the reduce-scatter of their gradient).
   * ``batch_local``: a function of batch rows (the RG-LRU, mLSTM and sLSTM
-    blocks, the MoE layer's dispatch groups) runs on each rank's rows with
-    the weights all-gathered (their gradient reduce-scattered back): one
-    all-gather a weight a call, and the activation's redistribution to and
-    from batch-over-dp.
+    blocks, the token-parallel MoE's dispatch groups) runs on each rank's
+    rows with the weights all-gathered (their gradient reduce-scattered
+    back): one all-gather a weight a call, and the activation's
+    redistribution to and from batch-over-dp.
 
 The decode step (``steps.make_decode_step``) runs under
 ``sharding_hints(stationary=True)``: ``matmul`` and ``embed`` move the
@@ -60,12 +60,18 @@ and written by the ranks that hold it:
     ``tp_gather``: the pieces the recurrent states (split on their feature
     dim) and whisper's cross K/V (split on the head dim) are updated and
     read with; a leaf placed by no rule raises.
-  * ``expert``: one expert of a stacked MoE weight where it lies.
+  * ``expert``: one expert of a stacked MoE weight where it lies (the
+    token-parallel MoE, ``E % tp != 0``).
+
+Expert parallelism (``E % tp == 0``, llama4's 128 experts over 16) runs in
+``expert_parallel`` in every step: each rank computes its own E/tp experts,
+which never move over tp; the tokens move to them (the all-to-all of the
+reference's ``constrain_experts`` layout) or are picked where they lie.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -537,6 +543,194 @@ def batch_local(fn: Callable, x, params, *, seq_axis_dim: Optional[int] = None):
     return _wrap(out, x, pl), rest, pl
 
 
+class EP(NamedTuple):
+    """The layout ``expert_parallel`` gives the MoE layer's local function.
+    ``mode`` is "exchange", "pick" or "stationary" (``expert_parallel``);
+    the rank holds experts ``first .. first + n_local - 1`` of the stack.
+    In "stationary" mode ``dw`` are the groups of the mesh dims that split
+    the stacks' d (wg/wu) and f (wd) dims, in mesh order, and ``d_slice``
+    is this rank's columns of d."""
+    mode: str
+    first: int
+    n_local: int
+    tp: int
+    tp_group: object
+    dw: Tuple[object, ...] = ()
+    d_slice: slice = slice(None)
+
+
+def expert_parallel(fn: Callable, x, params):
+    """Expert parallelism for a stacked MoE layer whose expert dim tp splits
+    (``E % tp == 0``; the planner gives the stacks P(tp, fsdp, None)): each
+    rank computes its own E/tp experts only, and no expert weight moves
+    over tp in either direction. ``fn(x_local, params_local, ep) -> (out,
+    *stats)`` does the routing and the experts (``ep``: an ``EP``);
+    ``params`` holds the router and the stacks (wg, wu, wd). x is (G, S, d)
+    (dispatch groups; under sequence parallelism the reference's (G·tp,
+    S/tp) groups are the rank's (G/dp, S/tp) rows). Returns (out on x's
+    rows, the stats as DTensors summed over the ranks that split the
+    rows).
+
+    The rows' placement picks the mode:
+      * "exchange": the rows split over tp (the sequence, S % tp == 0), or
+        a tp of one rank (a one-rank all-to-all). x goes to the rank's
+        rows (G/dp, S/tp, d); ``fn`` builds the static (E, G/dp, C, d)
+        dispatch buffer of them and ``to_experts`` sends each owner its
+        experts' block (one all-to-all over tp of E·(G/dp)·C·d elements a
+        rank; its gradient the reverse one); ``from_experts`` returns the
+        outputs (the same bytes again).
+      * "pick": the rows whole over tp > 1 (a prefill whose S does not
+        divide over tp). Each rank takes the choices routed to its own
+        experts from its rows; ``fn`` returns their gate-weighted f32 sum,
+        which is summed over tp and rounded to x's dtype once here (one
+        all-reduce of (G/dp)·S·d f32). The router's statistics are taken
+        on tp rank 0 only (each tp rank holds the same rows), so the
+        gradients of the router and x are partial sums over tp.
+      * "stationary" (under ``sharding_hints(stationary=True)``: the decode
+        step, where a tp of more than one rank or a dp split of the
+        stacks would otherwise move them): the stacks stay where they lie.
+        x's rows are all-gathered over the mesh dims that split the stacks'
+        d (``dw``: R rows of B/dp x d a rank); ``fn`` multiplies every row
+        by every local expert on the rank's d columns (wg/wu) and f rows
+        (wd), and sums the f32 partial products of wg/wu over ``dw`` with
+        ``dw_sum`` (a reduce-scatter onto f of K·R·2f f32); it returns the
+        gate-weighted f32 partial output, which is reduce-scattered onto
+        x's rows over ``dw`` (R·d f32) and all-reduced over tp ((B/dp)·d
+        f32) here, and rounded to x's dtype once.
+    In "exchange" and "pick" the local stacks (E/tp, d/dp, f) are
+    all-gathered over the dp axes only (ZeRO-3, E/tp·d·f elements a stack)
+    and their gradient reduce-scattered back over dp; the router (d, E) is
+    all-gathered whole, its gradient a partial sum over the ranks that
+    split the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    tp, dp = _roles(mesh)
+    names = axis_names(mesh)
+    if tp not in names:
+        raise ValueError(f"expert parallelism needs the tp axis {tp!r} in "
+                         f"the mesh {names}")
+    t = names.index(tp)
+    n_tp = mesh.size(t)
+    stacks = [params[k] for k in ("wg", "wu", "wd")]
+    E = stacks[0].shape[0]
+    for w in stacks:
+        if (not is_dtensor(w) or w.placements != stacks[0].placements
+                or (n_tp > 1 and w.placements[t] != Shard(0))):
+            raise ValueError(f"expert parallelism over {n_tp} tp ranks "
+                             f"needs the three expert stacks split alike, "
+                             f"on their expert dim over tp; got "
+                             f"{getattr(w, 'placements', 'a plain tensor')}")
+    dw = [i for i, p in enumerate(stacks[0].placements)
+          if i != t and isinstance(p, Shard) and mesh.size(i) > 1]
+    seq = moe_group_split(x.shape[1]) > 1
+    if weights_stay(mesh) and (n_tp > 1 or dw):
+        mode = "stationary"
+    elif n_tp > 1 and not seq:
+        mode = "pick"
+    else:
+        mode = "exchange"
+    pl = _batch_placements(mesh, x.shape[0], dp,
+                           (tp, 1) if mode == "exchange" and seq else None)
+    # the ranks that hold copies of the same rows take the routing's
+    # statistics once: rank 0 of tp in "pick"
+    stat_pl = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    first = mesh.get_local_rank(t) * (E // n_tp) if n_tp > 1 else 0
+    ep = EP(mode, first, E // n_tp, n_tp, mesh.get_group(t))
+    rep = [Replicate()] * mesh.ndim
+    if mode == "stationary":
+        rows_pl = [Replicate() if i in dw else p for i, p in enumerate(pl)]
+        stat_pl = [Partial() if isinstance(p, Shard) else Replicate()
+                   for p in rows_pl]
+        # the rank's columns of d: each dim in dw cuts the previous cut's
+        # block evenly, in mesh order (the planner splits only where it
+        # divides)
+        size, off = stacks[0].shape[1], 0
+        for i in dw:
+            size //= mesh.size(i)
+            off += mesh.get_local_rank(i) * size
+        ep = ep._replace(dw=tuple(mesh.get_group(i) for i in dw),
+                         d_slice=slice(off, off + size))
+        xl = x.redistribute(mesh, rows_pl).to_local()
+        local = {k: params[k].to_local() for k in ("wg", "wu", "wd")}
+    else:
+        grad_x = list(pl)
+        if mode == "pick":
+            grad_x[t] = stat_pl[t] = Partial()
+        xl = x.redistribute(mesh, pl).to_local(grad_placements=grad_x)
+        local = {}
+        for k, w in zip(("wg", "wu", "wd"), stacks):
+            keep = [w.placements[t] if i == t else Replicate()
+                    for i in range(mesh.ndim)]
+            grad = [w.placements[t] if i == t else
+                    Partial() if isinstance(pl[i], Shard) else Replicate()
+                    for i in range(mesh.ndim)]
+            local[k] = w.redistribute(mesh, keep).to_local(
+                grad_placements=grad)
+    router = params["router"]
+    if is_dtensor(router):
+        router = router.redistribute(mesh, rep).to_local(
+            grad_placements=[Partial() if p.is_partial() else Replicate()
+                             for p in stat_pl])
+    out, *stats = fn(xl, {"router": router, **local}, ep)
+    if mode == "pick" and mesh.get_local_rank(t) != 0:
+        # zeros with the same graph behind them: every rank's backward
+        # runs the same collectives
+        stats = [s * 0 for s in stats]
+    stats = [_wrap(s, x, stat_pl) for s in stats]
+    if mode == "exchange":
+        return _wrap(out, x, pl), stats
+    # an f32 partial sum over tp (and over dw): summed onto x's rows, and
+    # rounded once
+    part = [Partial() if i == t or (mode == "stationary" and i in dw)
+            else (rows_pl[i] if mode == "stationary" else p)
+            for i, p in enumerate(pl)]
+    out = _wrap(out, x, part).redistribute(mesh, pl).to(x.dtype)
+    return out, stats
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """One all-to-all of ``t`` over ``group``, dim 0 cut in equal blocks
+    (block i to rank i); its gradient the reverse all-to-all."""
+    import torch.distributed._functional_collectives as fc
+    if torch.is_grad_enabled() and t.requires_grad:
+        return fc.all_to_all_single_autograd(t, None, None, group)
+    return fc.all_to_all_single(t, None, None, group)
+
+
+def to_experts(buf: torch.Tensor, ep: EP) -> torch.Tensor:
+    """The exchange: the rank's dispatch buffer (E, n, d) to its owners,
+    experts ``r·E/tp ..`` to tp rank r; returns (E/tp, tp·n, d), the rows
+    every tp rank sent to this rank's experts, in rank order. One
+    all-to-all over tp of E·n·d elements a rank."""
+    _, n, d = buf.shape
+    y = _all_to_all(buf.contiguous(), ep.tp_group)
+    return y.view(ep.tp, ep.n_local, n, d).transpose(0, 1).reshape(
+        ep.n_local, ep.tp * n, d)
+
+
+def from_experts(y: torch.Tensor, ep: EP) -> torch.Tensor:
+    """The exchange's return: the local experts' outputs (E/tp, tp·n, d)
+    back to the ranks that sent the rows; returns (E, n, d) for this
+    rank's rows, in expert order. One all-to-all over tp of E·n·d
+    elements a rank."""
+    m, d = y.shape[1:]
+    n = m // ep.tp
+    z = y.view(ep.n_local, ep.tp, n, d).transpose(0, 1).reshape(
+        ep.tp * ep.n_local, n, d)
+    return _all_to_all(z, ep.tp_group)
+
+
+def dw_sum(t: torch.Tensor, dim: int, ep: EP) -> torch.Tensor:
+    """Partial sums over the mesh dims that split the experts' d
+    ("stationary"), summed and cut on ``dim`` as those dims cut the
+    stacks' f (a reduce-scatter over each, in mesh order, of ``t``'s
+    elements): each rank keeps the f rows of wd it holds."""
+    import torch.distributed._functional_collectives as fc
+    for g in ep.dw:
+        t = fc.reduce_scatter_tensor(t, "sum", dim, g)
+    return t
+
+
 def partial_sum(local: torch.Tensor, like, placements):
     """A DTensor of ``local`` that sums over the mesh dims ``placements``
     shard (and is replicated over the rest): each rank's share of a sum
@@ -723,32 +917,22 @@ def _as_tree(params):
 
 def expert(w, e: int):
     """Expert ``e`` of a stacked DTensor weight (E, a, b) as a DTensor
-    (a, b), its other splits kept: a view where no axis splits the expert
-    dim; where one does (llama4's experts over tp), the owner's block
-    summed over that axis, the others adding zeros (one all-reduce of a
-    rank's share of one expert); ``w[e]`` of a plain tensor."""
+    (a, b), its other splits kept (a view), for the token-parallel MoE
+    (``E % tp != 0``: the planner splits d_ff over tp, never the expert
+    dim); ``w[e]`` of a plain tensor. A stack whose expert dim a mesh dim
+    of more than one rank splits raises: its experts run where they lie
+    (``expert_parallel``), and one rank's block never leaves it."""
     if not is_dtensor(w):
         return w[e]
-    from torch.distributed.tensor import Replicate, Shard
-    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import Shard
     mesh = w.device_mesh
     ax = [i for i, p in enumerate(w.placements)
-          if isinstance(p, Shard) and p.dim == 0]
-    if not ax:
-        return w[e]
-    if len(ax) > 1:
-        raise ValueError(f"experts split over mesh dims {ax}")
-    i = ax[0]
-    local = w.to_local()
-    per = local.shape[0]
-    owner = e // per
-    blk = (local[e - owner * per] if mesh.get_local_rank(i) == owner
-           else torch.zeros_like(local[0]))
-    blk = fc.all_reduce(blk, "sum", mesh.get_group(i))
-    pl = [Replicate() if j == i else
-          (Shard(p.dim - 1) if isinstance(p, Shard) else p)
-          for j, p in enumerate(w.placements)]
-    return _wrap(blk, w, pl)
+          if isinstance(p, Shard) and p.dim == 0 and mesh.size(i) > 1]
+    if ax:
+        raise ValueError(f"expert {e} of a stack split on its expert dim "
+                         f"over mesh dims {ax}: run it expert-parallel "
+                         f"(expert_parallel)")
+    return w[e]
 
 
 __all__ = ["sharding_hints", "active", "is_dtensor", "constrain_heads",
@@ -759,4 +943,5 @@ __all__ = ["sharding_hints", "active", "is_dtensor", "constrain_heads",
            "moe_tokens_spec", "heads_local", "batch_local", "partial_sum",
            "weights_stay", "row_placements", "rows", "wrap_rows",
            "cache_local", "as_dtensor", "like_state", "tp_slice",
-           "tp_sum", "tp_gather", "seq_decode", "expert"]
+           "tp_sum", "tp_gather", "seq_decode", "expert", "EP",
+           "expert_parallel", "to_experts", "from_experts", "dw_sum"]

@@ -133,17 +133,20 @@ class Lowered:
     args: tuple
     fake_mode: Any
 
-    def run(self):
-        """(HLOAnalysis, argument bytes, peak live bytes) of one run. The
-        arguments are the weights and every other argument (the optimizer
-        state and the batch; the token and the cache)."""
+    def run(self, peak_tensors: int = 0):
+        """(HLOAnalysis, argument bytes, peak live bytes, what was live at
+        the peak or None) of one run. The arguments are the weights and
+        every other argument (the optimizer state and the batch; the token
+        and the cache). With ``peak_tensors`` the largest that many
+        storages live at the peak are listed (``OpCounter.at_peak``)."""
         model, *rest = self.args
         with _fake_mode(self.fake_mode), _static_moe_dispatch(), \
-                hlo_analysis.OpCounter() as c:
+                hlo_analysis.OpCounter(at_peak=peak_tensors > 0) as c:
             c.track((model.params(), *rest))
             arg_bytes = c.live
             self.fn(*self.args)
-        return c.analysis(), arg_bytes, c.peak
+        return (c.analysis(), arg_bytes, c.peak,
+                c.at_peak(peak_tensors) if peak_tensors else None)
 
 
 def kv_dtype_rule(cfg) -> str:
@@ -255,11 +258,13 @@ def roofline_terms(hlo: hlo_analysis.HLOAnalysis, n_chips: int,
 def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
              seq_shard: bool = True, remat: bool = True,
              moment_dtype: str = "float32", accum: int = 1,
-             kv_dtype: Optional[str] = None,
+             kv_dtype: Optional[str] = None, peak_tensors: int = 0,
              mesh=None, cfg=None, shape=None) -> Dict[str, Any]:
     """One cell's record. ``mesh`` (default: the production mesh of
     ``mesh_kind``), ``cfg`` and ``shape`` override the cell's. A decode
-    record adds ``kv_dtype`` and the rank's cache bytes."""
+    record adds ``kv_dtype`` and the rank's cache bytes; ``peak_tensors``
+    adds ``memory_per_device.at_peak``, the largest that many storages
+    live at the peak."""
     mesh = mesh if mesh is not None else make_production_mesh(
         multi_pod=(mesh_kind == "multi"))
     n_chips = mesh.size()
@@ -274,13 +279,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
                                shape=shape)
     rec["lower_s"] = round(time.time() - t0, 2)
     t0 = time.time()
-    hlo, arg_bytes, peak = lowered.run()
+    hlo, arg_bytes, peak, at_peak = lowered.run(peak_tensors)
     rec["run_s"] = round(time.time() - t0, 2)
     rec["memory_per_device"] = {
         "argument_bytes": int(arg_bytes),
         "temp_bytes": int(peak - arg_bytes),
         "live_bytes": int(peak),
         "fits_hbm_80g": bool(peak <= HBM_PER_CHIP)}
+    if at_peak is not None:
+        rec["memory_per_device"]["at_peak"] = at_peak
     if meta["shape"].kind == "decode":
         rec["kv_dtype"] = meta["cfg"].kv_cache_dtype
         with _fake_mode(lowered.fake_mode):
@@ -310,6 +317,9 @@ def _print_summary(rec: Dict[str, Any]) -> None:
         print(f"  mem/device: args {mem['argument_bytes']/2**30:.2f} GiB"
               f"{cache}, temps {mem['temp_bytes']/2**30:.2f} GiB,"
               f" fits 80G HBM: {mem['fits_hbm_80g']}")
+        for d in mem.get("at_peak", {}).get("largest", []):
+            print(f"    at peak: {d['bytes']/2**30:.3f} GiB {d['dtype']}"
+                  f" {tuple(d['shape'])} from {d['op']}")
     if r:
         print(f"  roofline: compute {r['compute_s']*1e3:.3f} ms,"
               f" memory {r['memory_s']*1e3:.3f} ms,"
@@ -388,6 +398,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--kv-dtype", choices=["bfloat16", "int8"], default=None,
                     help="override a decode cell's KV cache dtype (default: "
                     "the reference's rule, kv_dtype_rule)")
+    ap.add_argument("--peak-tensors", type=int, default=0,
+                    help="list the largest N storages live at the peak "
+                    "(memory_per_device.at_peak)")
     args = ap.parse_args(argv)
 
     if args.sweep:
@@ -415,7 +428,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         rec = run_cell(args.arch, args.shape, args.mesh,
                        seq_shard=not args.no_seq_shard,
                        remat=not args.no_remat, moment_dtype=mdt,
-                       accum=accum, kv_dtype=args.kv_dtype)
+                       accum=accum, kv_dtype=args.kv_dtype,
+                       peak_tensors=args.peak_tensors)
         rec["ok"] = True
     except Exception:
         rec = {"arch": args.arch, "shape": args.shape, "mesh": args.mesh,

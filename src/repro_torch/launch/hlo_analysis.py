@@ -27,8 +27,9 @@ ones ``dryrun`` reads:
 
 ``OpCounter`` also keeps the live bytes of the storages the ops create
 (plus the ones ``track`` registers: the step's arguments) and their peak,
-the dry run's per-device memory. The HLO text parser is not copied: nothing
-in the port would feed it.
+the dry run's per-device memory, and on request (``at_peak``) what was live
+at that peak. The HLO text parser is not copied: nothing in the port would
+feed it.
 """
 from __future__ import annotations
 
@@ -51,10 +52,12 @@ _C10D = {"all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
          "all_to_all_single": "all-to-all",
          "broadcast": "collective-broadcast"}
 
-#: ops that move no HBM bytes themselves (besides views)
+#: ops that move no HBM bytes themselves (besides views); ``device`` is the
+#: query ``tensor.device`` dispatches (``prim.device``) under a mode, which
+#: reads no element
 _FREE = {"detach", "empty", "empty_like", "empty_strided", "alias",
          "_local_scalar_dense", "wait_tensor", "lift_fresh", "set_",
-         "resize_"}
+         "resize_", "device"}
 
 _FLOP_OPS = ("mm", "addmm", "bmm", "baddbmm", "convolution", "_convolution",
              "convolution_backward")
@@ -95,7 +98,7 @@ class OpCounter(TorchDispatchMode):
     (``ShardingPropagator._propagate_tensor_meta*``, wrapped while the
     counter is entered); the ops of that run are not counted."""
 
-    def __init__(self):
+    def __init__(self, at_peak: bool = False):
         super().__init__()
         self._in_propagation = 0
         self._patched = []
@@ -108,16 +111,29 @@ class OpCounter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._storages = set()
+        # with ``at_peak``: each live storage's (bytes, shape, dtype, the op
+        # that made it), and their copy where the live bytes last rose to
+        # the peak (taken at the first free after it: once a local maximum)
+        self._desc = {} if at_peak else None
+        self._rising = False
+        self._at_peak = []
 
     # -- memory ---------------------------------------------------------------
     def track(self, tensors) -> None:
         """Count the storages of ``tensors`` (a tree; a DTensor's local one)
         as live, as the step's arguments are."""
         from torch.distributed.tensor import DTensor
-        for t in _tensors(tensors):
-            self._add(t.to_local() if isinstance(t, DTensor) else t)
+        # ``to_local``'s view is no op of the step: not counted
+        self._in_propagation += 1
+        try:
+            local = [t.to_local() if isinstance(t, DTensor) else t
+                     for t in _tensors(tensors)]
+        finally:
+            self._in_propagation -= 1
+        for t in local:
+            self._add(t, "argument")
 
-    def _add(self, t: torch.Tensor) -> None:
+    def _add(self, t: torch.Tensor, op: str) -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._storages:
@@ -125,12 +141,38 @@ class OpCounter(TorchDispatchMode):
         n = st.nbytes()
         self._storages.add(key)
         self.live += n
+        if self._desc is not None:
+            self._desc[key] = (n, tuple(t.shape), str(t.dtype), op)
+            if self.live > self.peak:
+                self._rising = True
         self.peak = max(self.peak, self.live)
         weakref.finalize(st, self._free, key, n)
 
     def _free(self, key: int, n: int) -> None:
+        if self._rising:
+            self._snapshot()
         self._storages.discard(key)
         self.live -= n
+        if self._desc is not None:
+            self._desc.pop(key, None)
+
+    def _snapshot(self) -> None:
+        self._at_peak = list(self._desc.values())
+        self._rising = False
+
+    def at_peak(self, n: int = 20) -> Dict:
+        """What was live at the peak: the ``n`` largest storages as
+        {bytes, shape, dtype, op}, largest first, and the bytes of the
+        rest (``OpCounter(at_peak=True)`` only)."""
+        if self._desc is None:
+            raise ValueError("OpCounter(at_peak=True) keeps what is live")
+        if self._rising:
+            self._snapshot()
+        live = sorted(self._at_peak, key=lambda d: -d[0])
+        return {"largest": [{"bytes": b, "shape": list(s), "dtype": dt,
+                             "op": op} for b, s, dt, op in live[:n]],
+                "rest_bytes": sum(d[0] for d in live[n:]),
+                "count": len(live)}
 
     # -- ops ------------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -156,7 +198,7 @@ class OpCounter(TorchDispatchMode):
             self.hbm_bytes += float(sum(_nbytes(t) for t in _tensors(args))
                                     + sum(_nbytes(t) for t in _tensors(out)))
         for t in _tensors(out):
-            self._add(t)
+            self._add(t, name)
         return out
 
     def __enter__(self):

@@ -18,9 +18,12 @@ expert einsums to XLA), and the gate-weighted outputs are added back into
 their tokens with ``index_add_``. An expert that received no token is
 skipped (decode), which changes no sum: its one-hot rows are zero in the
 reference. On a mesh the dispatch groups follow the reference's sequence
-split (``moe_forward``); the reference's pins of its dispatched tensors
-(``xin``/``eout``, ``moe.py:102-111``) have no counterpart, because the
-index form builds neither: each rank's groups stay on the rank.
+split (``moe_forward``), and its rule for the layout of its dispatched
+tensors (``xin``/``eout``, ``moe.py:102-111``): where tp divides E the
+layer is expert-parallel (``_moe_ep``), and builds the reference's static
+(E, G, C, d) dispatch buffer of each rank's groups, whose expert blocks go
+to their owners and back (an all-to-all each way over tp); else each
+rank's groups stay on the rank (token-parallel, the index form above).
 """
 from __future__ import annotations
 
@@ -87,6 +90,9 @@ class Routing(NamedTuple):
     slot: torch.Tensor        # (G, S, K) int64, place in the expert's queue
     keep: torch.Tensor        # (G, S, K) bool, slot < capacity
     capacity: int
+    #: the layer's layout on the mesh (``moe_forward``): "unsharded",
+    #: "token-parallel", or "expert-parallel <mode>" (``shardctx.EP``)
+    layout: str = "unsharded"
 
     @property
     def dropped(self) -> int:
@@ -162,20 +168,25 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig,
     Under sequence parallelism every seq shard is its own dispatch group,
     as in the reference (``shardctx.moe_group_split``): (G, S, d) is read
     as (G*tp, S/tp, d), which changes each group's capacity. On DTensors
-    each rank routes and computes its own groups (``shardctx.batch_local``,
-    the reference's E < tp layout for every E: token-parallel experts, the
-    expert weights all-gathered); the aux loss's two means are partial sums
-    over the ranks. In the decode step (``sharding_hints(stationary=True)``)
-    the weights stay put instead (``_moe_stationary``).
+    the layout follows the reference's rule (``moe.py:102-111``): where tp
+    divides E the layer runs expert-parallel (``_moe_ep``: each rank
+    computes its own E/tp experts, which stay put); else token-parallel,
+    each rank routing and computing its own groups with the expert weights
+    all-gathered (``shardctx.batch_local``), or, in the decode step
+    (``sharding_hints(stationary=True)``), with the weights kept where they
+    lie (``_moe_stationary``). The aux loss's two means are partial sums
+    over the ranks.
     """
     G, S, d = x.shape
     E = cfg.n_experts
     split = shardctx.moe_group_split(S)
-    if shardctx.is_dtensor(x) and shardctx.weights_stay(x.device_mesh):
+    if shardctx.is_dtensor(x) and E % max(1, shardctx.tp_size()) == 0:
+        out, routed, prob = _moe_ep(p, x, cfg)
+    elif shardctx.is_dtensor(x) and shardctx.weights_stay(x.device_mesh):
         out, routed, prob = _moe_stationary(p, x, cfg)
     elif shardctx.is_dtensor(x):
         out, (routed, prob), pl = shardctx.batch_local(
-            lambda xl, lp: _moe_groups(lp, xl, cfg), x, p,
+            lambda xl, lp: _moe_groups(lp, xl, cfg, "token-parallel"), x, p,
             seq_axis_dim=1 if split > 1 else None)
         routed, prob = (shardctx.partial_sum(t, x, pl)
                         for t in (routed, prob))
@@ -188,6 +199,120 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig,
     n = G * S
     aux = E * torch.sum((routed / n) * (prob / n))
     return out, aux
+
+
+def _route(p: Params, x: torch.Tensor, cfg: MoEConfig,
+           layout: str) -> Routing:
+    """``moe_route`` under ``layout``, seen (and maybe pinned) by
+    ``routing_log``."""
+    r = moe_route(p, x, cfg)._replace(layout=layout)
+    return r if _observer is None else _observer(r)
+
+
+def _stats(r: Routing, E: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the choices routed to each expert (E,) f32, the router's
+    probabilities summed over the tokens (E,))."""
+    return (F.one_hot(r.expert_ids, E).sum(dim=(0, 1, 2)).float(),
+            r.probs.sum(dim=(0, 1)))
+
+
+def _moe_ep(p: Params, x, cfg: MoEConfig):
+    """The layer expert-parallel (``E % tp == 0``), the reference's
+    ``constrain_experts`` layout: ``shardctx.expert_parallel`` places the
+    rows and the weights and states the collectives; here each rank routes
+    the rows it holds and runs its own experts on them (``_dispatched`` in
+    the exchange and the pick, ``_stationary_pick`` in the decode step).
+    The shared expert is a dense SwiGLU on x (``swiglu``: its weights split
+    over tp as the column- and row-parallel rules put them)."""
+
+    def local(xl, lp, ep):
+        r = _route(lp, xl, cfg, f"expert-parallel {ep.mode}")
+        fn = _stationary_pick if ep.mode == "stationary" else _dispatched
+        return (fn(lp, xl, r, ep, cfg), *_stats(r, cfg.n_experts))
+
+    out, (routed, prob) = shardctx.expert_parallel(
+        local, x, {k: p[k] for k in ("router", "wg", "wu", "wd")})
+    if cfg.shared_expert:
+        out = out + swiglu(p["shared"], x).redistribute(
+            out.device_mesh, out.placements)
+    return out, routed, prob
+
+
+def _swiglu_experts(p: Params, xin: torch.Tensor) -> torch.Tensor:
+    """Each local expert's SwiGLU on its rows: xin (E_l, n, d) ->
+    (E_l, n, d), the stacks cast to xin's dtype."""
+    wg, wu, wd = (p[k].to(xin.dtype) for k in ("wg", "wu", "wd"))
+    return torch.bmm(F.silu(torch.bmm(xin, wg)) * torch.bmm(xin, wu), wd)
+
+
+def _dispatched(p: Params, x: torch.Tensor, r: Routing, ep, cfg: MoEConfig
+                ) -> torch.Tensor:
+    """The reference's static dispatch on the rank's groups x (G, S, d):
+    each kept (token, choice) row scattered to (expert, group, slot) of a
+    zero (E, G, C, d) buffer (a dropped one to a spare row past it), the
+    experts run on every slot, and each token's outputs gathered back and
+    added in f32 with the gates rounded to x's dtype, as ``_moe_groups``
+    does. "exchange": the buffer goes to the experts' owners and back
+    (``shardctx.to_experts``, ``from_experts``), and the sum is rounded to
+    x's dtype. "pick": the buffer holds the rank's own experts only, and
+    the f32 sum is returned, a partial sum over tp."""
+    G, S, d = x.shape
+    K, C = cfg.top_k, r.capacity
+    e, keep = r.expert_ids, r.keep
+    if ep.mode == "pick":
+        e = e - ep.first
+        keep = keep & (e >= 0) & (e < ep.n_local)
+    n_e = cfg.n_experts if ep.mode == "exchange" else ep.n_local
+    slots = n_e * G * C
+    g = torch.arange(G, device=x.device)[:, None, None]
+    idx = torch.where(keep, (e * G + g) * C + r.slot, slots).reshape(-1)
+    rows = x.reshape(G * S, 1, d).expand(G * S, K, d).reshape(-1, d)
+    buf = x.new_zeros((slots + 1, d)).index_add(0, idx, rows)[:slots]
+    buf = buf.view(n_e, G * C, d)
+    if ep.mode == "exchange":
+        y = shardctx.from_experts(
+            _swiglu_experts(p, shardctx.to_experts(buf, ep)), ep)
+    else:
+        y = _swiglu_experts(p, buf)
+    y = torch.cat([y.reshape(slots, d), y.new_zeros((1, d))])
+    w = r.gates.to(x.dtype).float().reshape(G * S, K, 1)
+    out = (y[idx].float().view(G * S, K, d) * w).sum(dim=1).view(G, S, d)
+    return out.to(x.dtype) if ep.mode == "exchange" else out
+
+
+def _stationary_pick(p: Params, x: torch.Tensor, r: Routing, ep,
+                     cfg: MoEConfig) -> torch.Tensor:
+    """The decode step's pick, the stacks where they lie: x (R, S, d) holds
+    the rows of every rank that shares this rank's experts (a few tokens),
+    and each local expert multiplies all of them on the rank's d columns
+    (wg, wu) and f rows (wd); a (choice, token) takes the product of the
+    expert it routes to (at most one local expert matches it: ``where``
+    picks it, exactly). Where the stacks' d is split (``ep.dw``) the
+    products are f32 partial sums, summed by ``shardctx.dw_sum`` before the
+    SwiGLU; the gate-weighted outputs are returned as an f32 partial sum
+    over tp (and ``dw``) of (R, S, d)."""
+    R, S, d = x.shape
+    n, K = R * S, cfg.top_k
+    cdt = torch.float32 if ep.dw else x.dtype
+    xs = x.reshape(n, d)[:, ep.d_slice].to(cdt)
+    e = r.expert_ids.reshape(n, K) - ep.first
+    keep = r.keep.reshape(n, K)
+    w = r.gates.reshape(n, K).to(x.dtype).float()
+    gu = None
+    for j in range(ep.n_local):
+        y = torch.stack([xs @ p["wg"][j].to(cdt), xs @ p["wu"][j].to(cdt)],
+                        dim=1)                               # (n, 2, f)
+        m = (keep & (e == j)).T[..., None, None]             # (K, n, 1, 1)
+        gu = torch.where(m, y, 0 if gu is None else gu)
+    gu = shardctx.dw_sum(gu, 3, ep).to(x.dtype)
+    h = F.silu(gu[:, :, 0]) * gu[:, :, 1]                    # (K, n, f_l)
+    out = x.new_zeros((n, d), dtype=torch.float32)
+    for j in range(ep.n_local):
+        m = keep & (e == j)                                  # (n, K)
+        hj = torch.where(m.T[..., None], h, 0).sum(dim=0)
+        yj = hj.to(cdt) @ p["wd"][j].to(cdt)
+        out += torch.where(m, w, 0).sum(dim=1)[:, None] * yj.float()
+    return out.view(R, S, d)
 
 
 def dispatch(r: Routing, x: torch.Tensor, cfg: MoEConfig
@@ -225,7 +350,7 @@ def _moe_stationary(p: Params, x, cfg: MoEConfig):
           **{k: p[k] for k in ("wg", "wu", "wd")}}
     out, routed, prob = _moe_groups(
         lp, x.redistribute(mesh, rep).to_local(),
-        dataclasses.replace(cfg, shared_expert=False))
+        dataclasses.replace(cfg, shared_expert=False), "token-parallel")
     out = shardctx.as_dtensor(out, x, rep).redistribute(
         mesh, shardctx.row_placements(x))
     if cfg.shared_expert:
@@ -233,11 +358,12 @@ def _moe_stationary(p: Params, x, cfg: MoEConfig):
     return out, routed, prob
 
 
-def _moe_groups(p: Params, x: torch.Tensor, cfg: MoEConfig
+def _moe_groups(p: Params, x: torch.Tensor, cfg: MoEConfig,
+                layout: str = "unsharded"
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The layer on dispatch groups x (G, S, d): (out (G, S, d), the
     choices routed to each expert (E,) f32, the router's probabilities
-    summed over the tokens (E,)).
+    summed over the tokens (E,)); ``layout`` is recorded in the routing.
 
     The combine weights are the gates rounded to x's dtype, as the
     reference's ``combine.astype(x.dtype)``; the weighted expert outputs
@@ -248,9 +374,7 @@ def _moe_groups(p: Params, x: torch.Tensor, cfg: MoEConfig
     """
     G, S, d = x.shape
     E = cfg.n_experts
-    r = moe_route(p, x, cfg)
-    if _observer is not None:
-        r = _observer(r)
+    r = _route(p, x, cfg, layout)
     xf = x.reshape(G * S, d)
     counts, token, weight = dispatch(r, x, cfg)
     out = torch.zeros((G * S, d), dtype=torch.float32, device=x.device)
@@ -271,5 +395,4 @@ def _moe_groups(p: Params, x: torch.Tensor, cfg: MoEConfig
     out = out.to(x.dtype).reshape(G, S, d)
     if cfg.shared_expert:
         out = out + swiglu(p["shared"], x)
-    routed = F.one_hot(r.expert_ids, E).sum(dim=(0, 1, 2)).float()
-    return out, routed, r.probs.sum(dim=(0, 1))
+    return (out, *_stats(r, E))

@@ -27,6 +27,11 @@ host devices set before jax starts).
     window set to 32 so that the ring splits on its sequence as at full
     size) runs.
 
+  * reduced llama4's cells on the same fake mesh run the MoE
+    expert-parallel: a decode cell's MoE FLOPs a rank are the pick's count
+    from the shapes (exact), and a prefill and a train cell count their
+    all-to-alls (``test_expert_parallel_cells_count_what_they_run``).
+
 In this process: the op counter's live and peak bytes follow the
 tensors' lifetimes, on real and on fake tensors (exact).
 """
@@ -257,6 +262,75 @@ def test_decode_cell_against_the_reference():
     assert long["hlo"]["flops_per_device"] > 0
 
 
+EP_B, EP_S = 8, 64
+
+PORT_EP = textwrap.dedent("""
+    import json
+    from repro_torch.configs import ShapeSpec, get_reduced
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import init_group, make_mesh
+    from repro_torch.models import moe
+    init_group("fake", world_size=4)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    cfg = get_reduced("llama4-maverick-400b-a17b")
+    counters, moe_flops = [], []
+    enter = hlo_analysis.OpCounter.__enter__
+
+    def entered(self):
+        counters.append(self)
+        return enter(self)
+
+    forward = moe.moe_forward
+
+    def counted(*a, **k):
+        before = counters[-1].flops
+        out = forward(*a, **k)
+        moe_flops.append(counters[-1].flops - before)
+        return out
+
+    hlo_analysis.OpCounter.__enter__ = entered
+    moe.moe_forward = counted
+    out = {}
+    for kind, S in (("decode", %d), ("prefill", %d), ("train", %d)):
+        moe_flops.clear()
+        rec = dryrun.run_cell(cfg.name, kind, "single", mesh=mesh, cfg=cfg,
+                              shape=ShapeSpec(kind, S, %d, kind))
+        out[kind] = {"flops": rec["hlo"]["flops_per_device"],
+                     "collectives": rec["roofline"]["collectives"],
+                     "moe_flops": list(moe_flops)}
+    print("RESULT" + json.dumps(out))
+""") % (DEC_S, EP_S, EP_S, EP_B)
+
+
+def test_expert_parallel_cells_count_what_they_run():
+    """Reduced llama4 (4 experts, top-1, the shared expert; tp 2 divides E)
+    on the (2, 2) fake mesh. Decode (B 8): every MoE layer's FLOPs a rank
+    are the expert-parallel pick's, worked out from the shapes: the rows of
+    both data ranks (R = B, all-gathered over data, which splits the stacks'
+    d) times each of the rank's E/tp experts on its d/2 columns (wg, wu)
+    and f/2 rows (wd), the router on the R rows in f32, and the shared
+    expert's three products on the stationary layout (rows all-to-all'd
+    into d/2 columns for wg and wu, gathered over data for wd: R rows x
+    (d/2 x f/2) each). Prefill and train (S 64 over tp): two all-to-alls
+    a MoE layer forward (the exchange and its return), two more backward
+    and two more where remat runs the forward again."""
+    from repro_torch import configs
+    cfg = configs.get_reduced("llama4-maverick-400b-a17b")
+    port = _run(PORT_EP)
+    d, f, E, dp, tp = cfg.d_model, cfg.d_ff, cfg.n_experts, 2, 2
+    R = EP_B
+    experts = (E // tp) * (2 * 2 * R * (d // dp) * f + 2 * R * (f // dp) * d)
+    router = 2 * R * d * E
+    shared = 3 * 2 * R * (d // dp) * (f // tp)
+    n_moe = sum(k == "attn_moe" for k in cfg.pattern) * cfg.n_groups
+    dec = port["decode"]
+    assert dec["moe_flops"] == [experts + router + shared] * n_moe
+    assert dec["flops"] > sum(dec["moe_flops"])
+    assert "all-to-all" not in dec["collectives"]
+    assert port["prefill"]["collectives"]["all-to-all"]["count"] == 2 * n_moe
+    assert port["train"]["collectives"]["all-to-all"]["count"] == 6 * n_moe
+
+
 @pytest.mark.parametrize("fake", [False, True], ids=["real", "fake"])
 def test_op_counter_live_bytes_follow_the_tensors(fake):
     """A storage is live while any tensor on it is (a view keeps it), and
@@ -281,3 +355,53 @@ def test_op_counter_live_bytes_follow_the_tensors(fake):
             del z, w
             assert c.live == kib4
     assert c.peak == 3 * kib4
+
+
+@pytest.mark.parametrize("fake", [False, True], ids=["real", "fake"])
+def test_op_counter_lists_what_was_live_at_the_peak(fake):
+    """``OpCounter(at_peak=True)`` lists the storages live when the live
+    bytes were at their peak (largest first, with the op that made each),
+    not those of a later, lower high: here x, y and z at the peak; w comes
+    after y is freed and stays below it."""
+    import contextlib
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.hlo_analysis import OpCounter
+    with FakeTensorMode() if fake else contextlib.nullcontext():
+        x = torch.ones(1024)
+        with OpCounter(at_peak=True) as c:
+            c.track(x)
+            y = x.repeat(4)
+            z = torch.cat([x, x]).view(32, 64)
+            del y
+            w = x + 1
+            got, every = c.at_peak(2), c.at_peak(3)
+            del z, w
+        assert c.peak == (1 + 4 + 2) * 4096
+    assert got["count"] == 3 and got["rest_bytes"] == 4096
+    assert [(d["bytes"], d["op"]) for d in got["largest"]] == [
+        (4 * 4096, "repeat"), (2 * 4096, "cat")]
+    assert every["largest"][2]["op"] == "argument"
+    assert got["largest"][0]["shape"] == [4096]
+    assert got["largest"][0]["dtype"] == "torch.float32"
+    with pytest.raises(ValueError):
+        OpCounter().at_peak()
+
+
+def test_op_counter_counts_no_bytes_for_a_device_query():
+    """A fake tensor asks its device (``prim.device``, an op under a
+    dispatch mode) around a view of it, as the dry run's DeviceMesh does
+    at every ``mesh.mesh``; the query reads no element and adds no
+    op-boundary bytes (it counted the tensor's bytes: 4.30e9 of mixtral
+    ``long_500k``'s 6.41e9 on (2, 16, 16) were such queries). A view adds
+    none either; an op that writes a tensor adds its bytes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.hlo_analysis import OpCounter
+    with FakeTensorMode():
+        y = torch.ones(1024)
+        with OpCounter() as c:
+            y[0]
+            assert y.device.type == "cpu"
+        assert c.hbm_bytes == 0
+        with OpCounter() as c:
+            y * 2
+        assert c.hbm_bytes == 2 * 4 * 1024

@@ -20,7 +20,13 @@ shard masked, and the writes clamp past the end:
   * xlstm-350m (mLSTM and sLSTM states split on their feature dim);
   * whisper-base with 31 encoder frames, so that the cross K/V split on the
     head dim as at full size (1500 frames do not divide 16), and its self
-    cache on the sequence.
+    cache on the sequence;
+  * llama4-maverick (4 experts, top-1, the shared expert) and mixtral-8x7b
+    (4 experts) run the MoE expert-parallel (tp = 2 divides E: each rank
+    multiplies its own experts where they lie, ``moe._moe_ep``), as
+    llama4's 128 experts over 16 do at full size; mixtral-8x7b-e3 (3
+    experts, window 32) keeps the token-parallel decode
+    (``moe._moe_stationary``), as mixtral's 8 experts over 16 do.
 
 Both packages start from the same weights (the port's init, each norm scale
 and bias perturbed, in the reference's layout) and decode the same numpy
@@ -41,9 +47,22 @@ tokens. Tolerances, as max |diff| / max |logit| at every step:
     amplifies one bf16 ulp some 30-fold. In f32 it is held to F32_TOL =
     1e-4, against the reference and the unsharded decode alike (measured
     1.8e-5 and 1.6e-5: the partial sums' order across ranks).
-  * mixtral against the reference: MOE_LOGIT_TOL = 0.04, the reference run
-    op by op (``jax.disable_jit()``), as tests/test_torch_mesh_steps.py
-    runs it: compiled, XLA rounds the router's input otherwise.
+  * the MoE cases against the reference: MOE_LOGIT_TOL = 0.04 at every
+    step, the reference run op by op (``jax.disable_jit()``), as
+    tests/test_torch_mesh_steps.py runs it: compiled, XLA rounds the
+    router's input otherwise. Even op by op the two packages round the
+    router's input apart, and a near-tie can send a token to another
+    expert, which moves that step's logits by order 1. So the reference's
+    picks are recorded (its router lines on the same x, in a wrapper of
+    its ``moe_forward``; the MoE cases' reference runs before the port's
+    ranks) and both port decodes, unsharded and on the mesh, route every
+    MoE call to them through ``moe.routing_log``, the gates from their own
+    probabilities. Where a decode's own router would have chosen otherwise
+    must be a near-tie (chip_smoke.py's MOE_MAX_FLIPS = 2 (token, layer,
+    step) choices a run at most, each within MOE_TIE_MARGIN = 0.02 of its
+    own probabilities: measured, reduced llama4's unsharded decode at steps
+    10 and 23, 5.9e-3 and 4.4e-4, its mesh decode at the same two, 1.11e-2
+    and 3.5e-3; the mixtral cases at none).
   * against the port's unsharded decode: MESH_TOL = 0.015 (chip_smoke.py's
     MESH_DECODE_TOL, which gates its one-rank mesh decode too), the same
     function in another order: the flash-decode's combine normalizes after
@@ -54,10 +73,9 @@ tokens. Tolerances, as max |diff| / max |logit| at every step:
     int8 step; 0.013 recurrentgemma, whose recurrence carries it). The
     reference's own sharded and unsharded decodes differ by as much
     (0.016 int8, 0.015 recurrentgemma). MoE: MOE_MESH_TOL = 0.025
-    (measured 0.018); the two runs route the same tokens (the mesh run is
-    pinned to the unsharded run's experts through ``moe.routing_log``,
-    which also records where its own router would have chosen otherwise:
-    at most MAX_FLIPS (token, layer, step) choices of the run).
+    (measured 0.018); the two runs route the same tokens (both pinned to
+    the reference's picks; where the mesh's own router and the unsharded
+    one's chose apart is counted too: at most MAX_FLIPS choices).
 recurrentgemma and xlstm then run RANDOM_STEPS more steps of both decodes
 from one random state (the mLSTM normaliser ``n`` scaled by N_SCALE, so
 that the read-out's clamp max(|q . n|, 1) does not hide a lost partial sum
@@ -103,7 +121,7 @@ B, T = 4, 32
 LOGIT_TOL, MOE_LOGIT_TOL = 0.02, 0.04
 MESH_TOL, MOE_MESH_TOL = _chip_smoke.MESH_DECODE_TOL, 0.025
 F32_TOL = 1e-4
-MAX_FLIPS = 2
+MAX_FLIPS, TIE_MARGIN = _chip_smoke.MOE_MAX_FLIPS, _chip_smoke.MOE_TIE_MARGIN
 FRAMES = 31
 #: case -> (arch, config overrides)
 CASES = {
@@ -114,6 +132,8 @@ CASES = {
     "minicpm3-4b": ("minicpm3-4b", {}),
     "xlstm-350m": ("xlstm-350m", {}),
     "whisper-base": ("whisper-base", {}),
+    "llama4-maverick-400b-a17b": ("llama4-maverick-400b-a17b", {}),
+    "mixtral-8x7b-e3": ("mixtral-8x7b", {"window": 32, "n_experts": 3}),
 }
 F32_DRIVEN = ("xlstm-350m",)
 #: leaves split on their sequence dim (1)
@@ -152,7 +172,18 @@ REF = textwrap.dedent("""
     from repro.models import build
 
     B, T, CASES, F32_DRIVEN, NSTEPS, PAST_END = %r, %r, %r, %r, %r, %r
-    data = np.load(sys.argv[1])
+    data, names = np.load(sys.argv[1]), sys.argv[3].split(",")
+    from repro.models import moe as RM
+    moe_forward, picks = RM.moe_forward, []
+
+    def moe_forward_logged(p, x, cfg):
+        # the reference's own router lines (moe.py:74-77), on the same x
+        probs = jax.nn.softmax(jnp.einsum(
+            "gsd,de->gse", x.astype(jnp.float32), p["router"]), axis=-1)
+        picks.append(np.asarray(jax.lax.top_k(probs, cfg.top_k)[1]))
+        return moe_forward(p, x, cfg)
+
+    RM.moe_forward = moe_forward_logged
     mesh = make_mesh((2, 2), ("data", "model"))
     out = {}
 
@@ -176,7 +207,8 @@ REF = textwrap.dedent("""
             return {k: fix(v) for k, v in t.items()}
         return t
 
-    for name, (arch, over) in CASES.items():
+    for name in names:
+        arch, over = CASES[name]
         cfg = dataclasses.replace(configs.get_reduced(arch), **over)
         model = build(cfg)
         params = nest(name + "/p/")
@@ -201,8 +233,10 @@ REF = textwrap.dedent("""
 
         if cfg.n_experts:
             # op by op, unplaced (module docstring)
+            picks.clear()
             with jax.disable_jit():
                 out[name] = run(fn, params, cache)
+            out[name + "/experts"] = np.stack(picks)
             continue
         if name in PAST_END:
             # the reference's decode as it defines it (module docstring)
@@ -288,16 +322,18 @@ def _seq_leaves(cache):
     return out
 
 
-def _port(rank, world, inputs):
+def _port(rank, world, inputs, ref_picks):
     """Every case on this rank: the mesh decode, the unsharded decode, and
-    the non-owner check; rank 0 returns the logits."""
+    the non-owner check, each MoE call of both decodes routed to the
+    experts the reference picked (``ref_picks``); rank 0 returns the
+    logits."""
     from repro_torch._tree import flatten_with_paths, unflatten
     from repro_torch.distributed import steps
     from repro_torch.distributed.planner import (cache_sharding, shard_model,
                                                  shard_tensor)
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import moe, params_from_numpy
-    data = np.load(inputs)
+    data, ref_picks = np.load(inputs), np.load(ref_picks)
     mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
     res = {}
     for name in CASES:
@@ -317,6 +353,7 @@ def _port(rank, world, inputs):
             for (_, t), (_, s) in zip(flatten_with_paths(c1),
                                       flatten_with_paths(specs))])
         step = steps.make_decode_step(cfg)
+        pick = _reference_pick(ref_picks, name) if cfg.n_experts else None
         inp = torch.from_numpy(data[f"{name}/inputs"])
         kw = "embeds" if name in F32_DRIVEN else "token"
         mesh_logits, plain_logits, writes, untouched = [], [], 0, True
@@ -325,17 +362,13 @@ def _port(rank, world, inputs):
             x = inp[t] if kw == "embeds" else inp[t].long()
             args = ({"token": None, "embeds": x} if kw == "embeds"
                     else {"token": x})
-            n0 = len(log0)
-            with moe.routing_log(log0):
+            n0, n1 = len(log0), len(log1)
+            # both logs grow by one a MoE layer a step, in lockstep with
+            # the reference's picks
+            with moe.routing_log(log0, pick=pick):
                 l0, c0 = step(plain, cache=c0, **args)
             before = [(p, leaf.to_local().clone())
                       for p, leaf in _seq_leaves(c1)]
-
-            def pick(i):
-                # both logs grow by one a MoE layer a step, in lockstep
-                return log0[i].expert_ids, log0[i].keep
-
-            n1 = len(log1)
             with moe.routing_log(log1, pick=pick):
                 l1, c1 = step(model, cache=c1, **args)
             flips = 0
@@ -356,11 +389,45 @@ def _port(rank, world, inputs):
             plain_logits.append(l0.float().numpy())
         res[name] = {"mesh": np.stack(mesh_logits),
                      "plain": np.stack(plain_logits),
-                     "writes": writes, "untouched": untouched}
+                     "writes": writes, "untouched": untouched,
+                     "moe_layouts": sorted({r.layout for r in log1})}
+        if cfg.n_experts:
+            per_step = len(log0) // _steps(name)
+            res[name]["apart"] = {
+                run: _apart_from_the_reference(log, ref_picks, name,
+                                               per_step)
+                for run, log in (("plain", log0), ("mesh", log1))}
         if name in RANDOM_STATE:
             res[name]["random"] = _from_random_state(
                 step, plain, model, c0, c1, inp, kw)
     return res
+
+
+def _reference_pick(ref_picks, name):
+    """``moe.routing_log``'s ``pick`` for a MoE case: call i routes to the
+    experts the reference's router picked at its call i. A decode group is
+    one token, whose K distinct experts all take slot 0 < C: every choice
+    is kept."""
+    ids = torch.from_numpy(ref_picks[name + "/experts"]).long()
+    return lambda i: (ids[i], torch.ones_like(ids[i], dtype=torch.bool))
+
+
+def _apart_from_the_reference(log, ref_picks, name, per_step) -> list:
+    """(step, margin) of each (call, token) at which the run's own router
+    chose other experts than the reference's: the margin is the run's own
+    probability of its own top-k less that of the reference's picks (0 at
+    an exact tie)."""
+    want = torch.from_numpy(ref_picks[name + "/experts"]).long()
+    assert len(log) == len(want)
+    out = []
+    for i, r in enumerate(log):
+        assert bool(r.keep.all())
+        own, ref = r.expert_ids, want[i].view(r.expert_ids.shape)
+        apart = (own.sort(-1).values != ref.sort(-1).values).any(-1)
+        margin = (r.probs.gather(-1, own).sum(-1)
+                  - r.probs.gather(-1, ref).sum(-1))
+        out += [(i // per_step, float(m)) for m in margin[apart]]
+    return out
 
 
 def _from_random_state(step, plain, model, c0, c1, inp, kw):
@@ -401,22 +468,37 @@ def _from_random_state(step, plain, model, c0, c1, inp, kw):
     return np.stack(mesh_logits), np.stack(plain_logits), worst
 
 
+def _reference(inputs, out, names):
+    """The reference's decodes of ``names`` into the npz ``out``, in a
+    subprocess."""
+    return subprocess.Popen([sys.executable, "-c", REF, inputs, out,
+                             ",".join(names)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env={**os.environ, "PYTHONPATH": "src",
+                                            "JAX_PLATFORMS": "cpu"})
+
+
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
+    """(the reference's outputs by key, each rank's results). The MoE
+    cases' reference runs first, since the port routes to its picks; the
+    other cases' runs beside the port."""
     tmp = tmp_path_factory.mktemp("mesh_decode")
-    inputs, ref_out = str(tmp / "inputs.npz"), str(tmp / "ref.npz")
+    inputs = str(tmp / "inputs.npz")
     _make_inputs(inputs)
-    ref = subprocess.Popen([sys.executable, "-c", REF, inputs, ref_out],
-                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                           text=True,
-                           env={**os.environ, "PYTHONPATH": "src",
-                                "JAX_PLATFORMS": "cpu"})
+    moe_cases = [n for n in CASES if _cfg(n).n_experts]
+    outs = [str(tmp / "ref_moe.npz"), str(tmp / "ref_rest.npz")]
+    rest = _reference(inputs, outs[1],
+                      [n for n in CASES if n not in moe_cases])
     try:
-        ranks = _torch_ranks.run(_port, 4, tmp, inputs)
+        first = _reference(inputs, outs[0], moe_cases)
+        log, _ = first.communicate(timeout=600)
+        assert first.returncode == 0, log[-4000:]
+        ranks = _torch_ranks.run(_port, 4, tmp, inputs, outs[0])
     finally:
-        log, _ = ref.communicate(timeout=600)
-    assert ref.returncode == 0, log[-4000:]
-    return np.load(ref_out), ranks
+        log, _ = rest.communicate(timeout=600)
+    assert rest.returncode == 0, log[-4000:]
+    return {k: v for o in outs for k, v in np.load(o).items()}, ranks
 
 
 def _tol(name, moe: float, bf16: float) -> float:
@@ -448,6 +530,18 @@ def test_mesh_decode_matches_the_reference_sharded_decode(results, name):
         plain = ref[name + "/plain"]
         worst = max(_rel(got[t], plain[t]) for t in range(len(plain)))
         assert worst <= tol, worst
+
+
+@pytest.mark.parametrize("name", [n for n in CASES if _cfg(n).n_experts])
+def test_moe_picks_pinned_to_the_reference_are_near_ties(results, name):
+    """Where a decode's own router chose other experts than the reference's
+    (to which both decodes are pinned), the two choices are a near-tie of
+    its own probabilities: at most MAX_FLIPS (token, layer, step) choices
+    a run, each within TIE_MARGIN (module docstring)."""
+    _, ranks = results
+    for run, apart in ranks[0][name]["apart"].items():
+        assert len(apart) <= MAX_FLIPS, (run, apart)
+        assert all(m <= TIE_MARGIN for _, m in apart), (name, run, apart)
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -556,6 +650,10 @@ FULL_CLASSES = {
                      ("dec", "xk"): "head dim", ("dec", "xv"): "head dim"},
 }
 FULL_CLASSES["qwen3-14b-int8"] = FULL_CLASSES["qwen3-14b"]
+FULL_CLASSES["mixtral-8x7b-e3"] = FULL_CLASSES["mixtral-8x7b"]
+FULL_CLASSES["llama4-maverick-400b-a17b"] = {
+    ("body", kind, leaf): "sequence" for kind in ("attn", "attn_moe")
+    for leaf in ("k", "v")}
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -620,3 +718,18 @@ def test_a_cache_leaf_placed_by_no_rule_raises(tmp_path):
     msgs = _torch_ranks.run(_unknown_placement, 4, tmp_path)
     assert all(m is not None and "'k'" in m and "match no decode rule" in m
                for m in msgs), msgs
+
+
+#: The MoE layout of each MoE case's decode, as the reference's rule
+#: ``E % tp == 0`` picks it (``src/repro/models/moe.py:102-111``; the
+#: layout every MoE call recorded in its routing, ``moe.Routing.layout``):
+#: expert parallelism's decode pick keeps the stacks where they lie.
+MOE_LAYOUTS = {"mixtral-8x7b": "expert-parallel stationary",
+               "llama4-maverick-400b-a17b": "expert-parallel stationary",
+               "mixtral-8x7b-e3": "token-parallel"}
+
+
+@pytest.mark.parametrize("name", list(MOE_LAYOUTS))
+def test_moe_decode_takes_the_references_layout(results, name):
+    _, ranks = results
+    assert all(r[name]["moe_layouts"] == [MOE_LAYOUTS[name]] for r in ranks)

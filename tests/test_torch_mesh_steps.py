@@ -12,7 +12,12 @@ take one AdamW step (lr 1e-3, warmup 2, clip 1.0) on the same numpy batch
   * reduced qwen3-14b: the sharded train step against the reference's
     sharded step (jitted); the prefill with ``seq_shard=True`` against the
     reference's sharded prefill.
-  * reduced mixtral-8x7b: the sharded train step against the reference's
+  * reduced mixtral-8x7b and llama4-maverick (4 experts: tp = 2 divides
+    them, so both run the MoE expert-parallel, ``moe._moe_ep``, as the
+    reference pins them to ``constrain_experts``), and reduced mixtral with
+    3 experts (``mixtral-8x7b-e3``: tp does not divide them, so it runs
+    token-parallel, as at full size with 8 experts over 16): the sharded
+    train step against the reference's
     *sharded* step (``make_train_step(mesh=...)``: its sharding hints and
     constraints active), run op by op (``jax.disable_jit()``, as
     tests/test_torch_train_moe.py runs it: compiled, XLA rounds the
@@ -26,7 +31,20 @@ take one AdamW step (lr 1e-3, warmup 2, clip 1.0) on the same numpy batch
     on placed weights, 24.313 unplaced, and 24.313 for the reference with
     the group split and no mesh at all; the port's is within 2e-4 of the
     last two).
-  * both: the gradient each sharded step hands to AdamW, leaf by leaf,
+    Reduced mixtral-8x7b-e3 has a token whose router probabilities tie
+    between two experts to six digits (0.273329 each, in the port's
+    unsharded step and in the reference's), which the mesh's partial sums
+    in another order resolve the other way (measured: loss 23.3104
+    against the reference's 23.1147; the port's unsharded step on the same
+    groups 23.1302). Its mesh step (``PINNED``) is pinned to the routing of
+    the port's own unsharded step on the same dispatch groups
+    (``moe.routing_log``: each call's experts and kept choices, the gates
+    from the call's own probabilities), as tests/test_torch_mesh_decode.py
+    pins its decode; the flips the pin hides are counted, at most
+    MAX_FLIPS. The other MoE cases route on their own (pinned to the
+    unsharded port, their mesh steps would take its near-tie picks, which
+    the reference's op-by-op run does not share).
+  * all: the gradient each sharded step hands to AdamW, leaf by leaf,
     against the reference's (captured by wrapping ``optim.update`` on both
     sides).
   * qwen3-14b: the port's sharded step and gradient against its own
@@ -40,6 +58,7 @@ other sign moves by up to 2 x lr), each leaf's gradient LEAF_GRAD_RTOL =
 0.1 relative (the worst leaf's norm of the difference over its norm); and
 tests/test_torch_lm.py's logits bound, max |diff| / max |logit| <= 0.02.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -57,11 +76,24 @@ LOSS_RTOL, GNORM_RTOL = 2e-3, 2e-2
 PARAM_ATOL = 2.5 * OCFG["lr"]
 LEAF_GRAD_RTOL = 0.1
 LOGIT_TOL = 0.02
-ARCHS = ("qwen3-14b", "mixtral-8x7b")
+#: The MoE cases whose mesh step routes as the port's unsharded step does
+#: (module docstring)
+PINNED = ("mixtral-8x7b-e3",)
+#: (token, choice) picks where a MoE case's mesh step, routing on its own,
+#: would choose another expert than the unsharded step it is pinned to,
+#: summed over its calls (the forward and remat's recomputation)
+MAX_FLIPS = 2
+#: case -> (arch, config overrides), in both packages
+CASES = {"qwen3-14b": ("qwen3-14b", {}),
+         "mixtral-8x7b": ("mixtral-8x7b", {}),
+         "llama4-maverick-400b-a17b": ("llama4-maverick-400b-a17b", {}),
+         "mixtral-8x7b-e3": ("mixtral-8x7b", {"n_experts": 3})}
+ARCHS = tuple(CASES)
 
 REF = textwrap.dedent("""
     import os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import dataclasses
     import numpy as np
     import jax
     from repro import configs, optim
@@ -89,8 +121,8 @@ REF = textwrap.dedent("""
                            for q in path)
             out[prefix + key] = np.asarray(a, np.float32)
 
-    for i, arch in enumerate(%r):
-        cfg = configs.get_reduced(arch)
+    for i, (arch, (name, over)) in enumerate(%r.items()):
+        cfg = dataclasses.replace(configs.get_reduced(name), **over)
         params = build(cfg).init(jax.random.key(i))
         flat(arch + "/p0/", params)
         rng = np.random.default_rng(i)
@@ -115,7 +147,7 @@ REF = textwrap.dedent("""
             out[arch + "/logits"] = np.asarray(
                 pre(pd, {"tokens": batch["tokens"]}))
     np.savez(sys.argv[1], **out)
-""") % (B, S, OCFG, ARCHS)
+""") % (B, S, OCFG, CASES)
 
 
 def _nest(flat: dict) -> dict:
@@ -135,6 +167,41 @@ def _tree_of(ref, arch, which):
                   if k.startswith(pre)})
 
 
+def _summed(n: int) -> int:
+    """``n`` summed over the ranks."""
+    import torch.distributed as dist
+    t = torch.tensor([n])
+    dist.all_reduce(t)
+    return int(t)
+
+
+def _pinned_to_the_unsharded_routing(cfg, plain, batch, mesh):
+    """(pick, the picks): the port's unsharded loss and gradient on the same
+    dispatch groups as the mesh step's (the sequence split in two,
+    ``moe_group_split``), its routing recorded call by call (the forward,
+    then remat's recomputation in the backward); ``pick(i)`` gives call
+    i's experts and kept choices for this rank's groups (its two batch
+    rows of the data split, its half of the sequence), for
+    ``moe.routing_log``. The mesh step then routes as the unsharded one,
+    where a router tie would otherwise flip an expert (module docstring)."""
+    from repro_torch.distributed import shardctx, steps
+    from repro_torch.models import moe
+    log = []
+    split = shardctx.moe_group_split
+    shardctx.moe_group_split = lambda n: 2 if n % 2 == 0 else 1
+    try:
+        with moe.routing_log(log):
+            steps.loss_and_grads(cfg, plain, batch)
+    finally:
+        shardctx.moe_group_split = split
+    dr, mr = mesh.get_local_rank(0), mesh.get_local_rank(1)
+    rows = slice(2 * dr, 2 * dr + 2)
+    own = [r._replace(expert_ids=r.expert_ids.view(B, 2, S // 2, -1)[rows, mr],
+                      keep=r.keep.view(B, 2, S // 2, -1)[rows, mr])
+           for r in log]
+    return (lambda i: (own[i].expert_ids, own[i].keep)), own
+
+
 def _port(rank, world, ref_path):
     """Each rank's part; rank 0 returns the results (full tensors, gathered
     by every rank)."""
@@ -143,7 +210,7 @@ def _port(rank, world, ref_path):
     from repro_torch.distributed import steps
     from repro_torch.distributed.planner import PlanConfig, shard_model
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import params_from_numpy, to_reference
+    from repro_torch.models import moe, params_from_numpy, to_reference
 
     ref = np.load(ref_path)
     mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
@@ -166,18 +233,26 @@ def _port(rank, world, ref_path):
         return {"/".join(p): t.double().numpy() for p, t in
                 flatten_with_paths(to_reference(cfg, tree))}
 
-    for arch in ARCHS:
-        cfg = configs.get_reduced(arch)
+    for arch, (name, over) in CASES.items():
+        cfg = dataclasses.replace(configs.get_reduced(name), **over)
         tree = _tree_of(ref, arch, "p0")
         batch = {k: torch.from_numpy(ref[f"{arch}/{k}"])
                  for k in ("tokens", "labels")}
         f32 = dict(weight_dtype=torch.float32, remat=True)
         model = shard_model(model_of(cfg, tree, **f32), mesh, plan)
         step = steps.make_train_step(cfg, ocfg, mesh=mesh, device="cpu")
-        _, _, m = step(model, optim.init(model.params()), batch)
+        log, pick, own = [], None, []
+        if arch in PINNED:
+            pick, own = _pinned_to_the_unsharded_routing(
+                cfg, model_of(cfg, tree, **f32), batch, mesh)
+        with moe.routing_log(log, pick):
+            _, _, m = step(model, optim.init(model.params()), batch)
         res = {"loss": float(m["loss"]), "gnorm": float(m["grad_norm"]),
                "params": ref_layout(cfg, model.params()),
-               "grads": ref_layout(cfg, grads.pop())}
+               "grads": ref_layout(cfg, grads.pop()),
+               "moe_layouts": sorted({r.layout for r in log}),
+               "flips": _summed(sum(int((r.expert_ids != o.expert_ids)
+                                        .sum()) for r, o in zip(log, own)))}
         if arch == "qwen3-14b":
             served = shard_model(model_of(cfg, tree), mesh, plan)
             pre = steps.make_prefill(cfg, mesh=mesh, seq_shard=True,
@@ -276,3 +351,20 @@ def test_sharded_step_matches_the_ports_own_unsharded_step(results):
     assert _rel(got["gnorm"], got["gnorm_plain"]) <= GNORM_RTOL
     _same_params(got["params"], got["params_plain"])
     _same_grads(got["grads_mesh"], got["grads_plain"])
+
+
+#: The MoE layout each case takes on the (2, 2) mesh, as the reference's
+#: rule ``E % tp == 0`` (``src/repro/models/moe.py:102-111``) picks it (the
+#: layout every MoE call recorded in its routing, ``moe.Routing.layout``):
+#: the sequence (16) splits over tp, so expert parallelism takes the
+#: exchange.
+MOE_LAYOUTS = {"mixtral-8x7b": "expert-parallel exchange",
+               "llama4-maverick-400b-a17b": "expert-parallel exchange",
+               "mixtral-8x7b-e3": "token-parallel"}
+
+
+@pytest.mark.parametrize("arch", list(MOE_LAYOUTS))
+def test_moe_cases_take_the_references_layout(results, arch):
+    _, port = results
+    assert port[arch]["moe_layouts"] == [MOE_LAYOUTS[arch]]
+    assert port[arch]["flips"] <= MAX_FLIPS
