@@ -150,11 +150,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      (e) ``python -m repro_torch.launch.dryrun`` for qwen3-14b
      ``train_4k`` on ``single``, mixtral-8x7b ``train_4k`` on ``multi``,
      qwen1.5-32b ``decode_32k`` on ``single``, mixtral-8x7b
-     ``long_500k`` on ``multi``, and llama4-maverick ``decode_32k`` and
-     ``train_4k`` on ``single`` (expert-parallel: below DRYRUN_LIMITS'
-     bounds, 1e12 FLOP and 1e9 collective bytes a rank in decode, 1e12
-     reduce-scatter bytes and a peak of 80 GB in train), six CPU
-     subprocesses started before
+     ``long_500k`` on ``multi``, and llama4-maverick ``decode_32k``,
+     ``train_4k`` and ``prefill_32k`` on ``single`` (expert-parallel:
+     below DRYRUN_LIMITS' bounds, 1e12 FLOP and 1e9 collective bytes a
+     rank in decode, 1e12 reduce-scatter bytes and a peak of 80 GB in
+     train; in prefill, where each rank attends on its own 3 of 40 heads,
+     5e14 FLOP and 80 GB), seven CPU subprocesses started before
      phase 8 (no card), each record's memory a device, roofline terms and
      collectives printed (a decode record's cache must be exactly its
      share and its peak below its arguments plus its cache); (f) at the
@@ -2905,13 +2906,16 @@ def drive_launch_train(dev) -> dict:
 # rank holds (10.7 GB), mixtral's at 524k tokens on the two-pod mesh (the
 # ring buffer, B = 1, the MoE in decode), and llama4's (128 experts over
 # 16: expert-parallel, each rank multiplying its own 8 experts where they
-# lie). Each runs on the CPU alone, under FakeTensorMode.
+# lie), and llama4's prefill of 32k tokens (its 40 heads over 16: each rank
+# attends on its own 3, in query blocks of K5's plain version). Each runs
+# on the CPU alone, under FakeTensorMode.
 DRYRUN_CELLS = (("qwen3-14b", "train_4k", "single"),
                 ("mixtral-8x7b", "train_4k", "multi"),
                 ("qwen1.5-32b", "decode_32k", "single"),
                 ("mixtral-8x7b", "long_500k", "multi"),
                 ("llama4-maverick-400b-a17b", "decode_32k", "single"),
-                ("llama4-maverick-400b-a17b", "train_4k", "single"))
+                ("llama4-maverick-400b-a17b", "train_4k", "single"),
+                ("llama4-maverick-400b-a17b", "prefill_32k", "single"))
 DRYRUN_TIMEOUT_S = 600
 # Upper bounds on a cell's record (name -> (path in the record, bound)).
 # llama4's decode with the experts where they lie multiplies each rank's 8
@@ -2922,6 +2926,9 @@ DRYRUN_TIMEOUT_S = 600
 # gradient over data (6.97e11 bytes in all), where gathering the whole
 # stack to every rank reduce-scattered 6.9e12, and its peak fits the
 # card's 80 GB, where the whole f32 stack and its gradient took 157 GiB.
+# Its prefill attends on a rank's 3 of 40 heads (2.74e14 FLOP a rank; all
+# 40 on every rank read 2.2264e15) and holds one query block of scores at a
+# time (all 40 heads' (32768, 32768) f32 scores, twice, peaked at 647 GiB).
 DRYRUN_LIMITS = {
     ("llama4-maverick-400b-a17b", "decode_32k", "single"): {
         "FLOP a rank": (("hlo", "flops_per_device"), 1e12),
@@ -2930,6 +2937,10 @@ DRYRUN_LIMITS = {
     ("llama4-maverick-400b-a17b", "train_4k", "single"): {
         "reduce-scatter bytes a rank": (
             ("roofline", "collectives", "reduce-scatter", "bytes"), 1e12),
+        "peak live bytes a rank": (("memory_per_device", "live_bytes"),
+                                   80e9)},
+    ("llama4-maverick-400b-a17b", "prefill_32k", "single"): {
+        "FLOP a rank": (("hlo", "flops_per_device"), 5e14),
         "peak live bytes a rank": (("memory_per_device", "live_bytes"),
                                    80e9)}}
 
@@ -2957,13 +2968,22 @@ def start_dryruns() -> list:
     return procs
 
 
+def _weight_share(arch: str, mesh: str) -> float:
+    """A rank's share of an arch's bf16 weights, in bytes: 2 bytes a weight
+    over the ranks that split the weights (the data and model axes; the pod
+    axis too above 100B weights, as the dry run plans them)."""
+    from repro_torch.configs import get
+    n = get(arch).param_count()
+    pods = 2 if mesh == "multi" else 1
+    return 2 * n / (256 * (pods if n > 100e9 else 1))
+
+
 def _decode_floor(arch: str, shape_name: str, mesh: str) -> tuple:
     """(a rank's share of a decode cell's bf16 weights and of its cache,
-    in bytes): 2 bytes a weight over the ranks that split the weights (the
-    data and model axes; the pod axis too above 100B weights, as the dry
-    run plans them), the cache (``steps.cache_specs`` in the reference's
-    KV dtype) over the ranks that split it (every rank where the batch
-    splits over the data axes; the model axis alone at B = 1)."""
+    in bytes): ``_weight_share``, and the cache (``steps.cache_specs`` in
+    the reference's KV dtype) over the ranks that split it (every rank
+    where the batch splits over the data axes; the model axis alone at
+    B = 1)."""
     import dataclasses
     import torch
     from repro_torch.configs import SHAPES_BY_NAME, get
@@ -2972,14 +2992,12 @@ def _decode_floor(arch: str, shape_name: str, mesh: str) -> tuple:
     from repro_torch._tree import leaves
     cfg, shape = get(arch), SHAPES_BY_NAME[shape_name]
     cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_dtype_rule(cfg))
-    pods = 2 if mesh == "multi" else 1
-    w_split = 256 * (pods if cfg.param_count() > 100e9 else 1)
-    dp = 16 * pods
+    dp = 16 * (2 if mesh == "multi" else 1)
     c_split = 16 * (dp if shape.global_batch % dp == 0 else 1)
     cache = sum(t.numel() * t.element_size()
                 for t in leaves(steps.cache_specs(cfg, shape))
                 if isinstance(t, torch.Tensor))
-    return 2 * cfg.param_count() / w_split, cache / c_split
+    return _weight_share(arch, mesh), cache / c_split
 
 
 def finish_dryruns(procs: list) -> list:
@@ -2989,8 +3007,8 @@ def finish_dryruns(procs: list) -> list:
     rank holds whole only add to it): for a train cell its share of the
     f32 weights and their two moments (in the record's moment dtype: f32,
     12 bytes a weight, or bf16 for llama4, 8), over the ranks; for a
-    decode cell its share of the bf16 weights and of the
-    cache (``_decode_floor``). A decode record also fails if its cache
+    prefill cell its share of the bf16 weights (``_weight_share``); for a
+    decode cell that and its share of the cache (``_decode_floor``). A decode record also fails if its cache
     bytes are not that share, or if its peak reaches its arguments plus
     its cache: that would be a second copy of the cache (the step writes
     it in place, as the reference donates it)."""
@@ -3024,6 +3042,8 @@ def finish_dryruns(procs: list) -> list:
             moment = 2 if r["moment_dtype"] == "bfloat16" else 4
             floor = (0.9 * (4 + 2 * moment) * get(arch).param_count()
                      / r["n_chips"])
+        elif shape.startswith("prefill"):
+            floor = 0.9 * _weight_share(arch, mesh)
         else:
             w_share, c_share = _decode_floor(arch, shape, mesh)
             floor = 0.9 * (w_share + c_share)

@@ -31,12 +31,16 @@ named with the collectives it adds (the dry run counts them):
     column-parallel product, the partial sum after a row-parallel one.
   * ``embed``: the vocab-parallel lookup: the table's all-gather over dp,
     the rows' partial sum over tp.
-  * ``heads_local``: K5 (``flash_mha``) takes raw pointers. q/k/v are
-    redistributed to heads over tp (when the query and KV head counts both
-    divide it) and batch over dp (when the batch divides it), else
-    replicated; the kernel runs on the local heads and the result is
-    wrapped back. Under sequence-parallel hints that is one all-to-all of
-    q (S-sharded to head-sharded) and a slice of k/v a layer.
+  * ``heads_local``: K5 (``flash_mha``) takes raw pointers. q is
+    redistributed to heads over tp, whatever their count (DTensor's
+    uneven split: ceil(H/tp) heads a rank at most), and batch over dp
+    (when the batch divides it); k/v split alike where KV is H or tp
+    divides both, else stay whole over tp and each rank takes the KV heads
+    its query heads read. The kernel runs on the local heads and the
+    result is wrapped back. Under sequence-parallel hints that is one
+    all-to-all of q (S-sharded to head-sharded) and a slice of k/v a layer
+    (an all-gather of k/v where they stay whole), and where tp does not
+    divide H one all-to-all of the result back to the sequence.
   * ``seq_local``: the reference's dense attention (``_sdpa``, MLA's
     dense score) in the layout of its sequence-parallel hints, each rank on
     its own query rows against the whole k/v: the all-gather of k/v a
@@ -466,19 +470,56 @@ def _wrap(local: torch.Tensor, like, placements):
 
 def heads_local(fn: Callable, q, k, v, **kw):
     """``fn(q, k, v, **kw) -> (B, S, H*hd)`` (``flash_mha``) on DTensor
-    q (B,S,H,hd) and k/v (B,T,KV,hd): heads over tp where H and KV both
-    divide it, batch over dp where B does, the rest replicated."""
+    q (B,S,H,hd) and k/v (B,T,KV,hd), on each rank's heads and batch rows:
+    the reference's ``constrain_heads`` layout, P(dp, None, tp, None)
+    whatever H is (batch over dp where B divides it).
+
+    q's heads split over tp as DTensor cuts a dim (``torch.chunk``, where
+    GSPMD pads): rank r holds heads [r*c, min((r+1)*c, H)), c = ceil(H/tp),
+    so rank 0 holds the most and the last ranks may hold none (40 heads
+    over 16: 13 ranks of 3, one of 1, two of 0). Where KV is H, or tp
+    divides both H and KV, k/v split alike. Elsewhere k/v stay whole over
+    tp and each rank takes by index the KV head each of its query heads
+    reads (h // (H/KV)), so ``fn`` runs with one query head a KV head. A
+    rank with no head does not call ``fn``.
+
+    The result comes back split on its head dim: on (B, S, H*hd) itself
+    where tp divides H (the local heads are one contiguous block of dim 2);
+    elsewhere on its (B, S, H, hd) shape, whose flattening DTensor cannot
+    express (40 heads over 16 are 2.5 heads of (B, S, H*hd)), so it is
+    moved to the sequence dim first where tp divides S (one all-to-all),
+    else gathered (one all-gather). The collectives a call adds: q's move
+    to its heads (an all-to-all from the sequence-parallel layout), k/v's
+    to theirs (a slice, or an all-gather over tp where they stay whole),
+    and that one of the result."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     mesh = q.device_mesh
     tp, dp = _roles(mesh)
-    sizes = axis_sizes(mesh)
-    H, KV = q.shape[2], k.shape[2]
-    heads = (tp in sizes and H % sizes[tp] == 0 and KV % sizes[tp] == 0)
-    pl = _batch_placements(mesh, q.shape[0], dp,
-                           (tp, 2) if heads else None)
-    out = fn(*(t.redistribute(mesh, pl).to_local() for t in (q, k, v)),
-             **kw)
-    # (B, S, H*hd): the local heads are one contiguous block of dim 2
-    return _wrap(out, q, pl)
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    n = axis_sizes(mesh).get(tp, 1)
+    pl = _batch_placements(mesh, B, dp, (tp, 2))
+    kv_alike = KV == H or (H % n == 0 and KV % n == 0)
+    kv_pl = pl if kv_alike else _batch_placements(mesh, B, dp)
+    ql = q.redistribute(mesh, pl).to_local()
+    kl, vl = (t.redistribute(mesh, kv_pl).to_local() for t in (k, v))
+    h = ql.shape[2]
+    if not kv_alike:
+        h0 = mesh.get_local_rank(axis_names(mesh).index(tp)) * -(-H // n)
+        idx = torch.arange(h0, h0 + h, device=kl.device) // (H // KV)
+        kl, vl = (t.index_select(2, idx) for t in (kl, vl))
+    out = (fn(ql, kl, vl, **kw) if h else
+           ql.new_empty((ql.shape[0], S, 0)))
+    if H % n == 0:
+        return _wrap(out, q, pl)
+    # the global shape, which DTensor cannot infer from an uneven split
+    y = DTensor.from_local(out.unflatten(2, (h, hd)), mesh, pl,
+                           run_check=False, shape=(B, S, H, hd),
+                           stride=(S * H * hd, H * hd, hd, 1))
+    moved = list(pl)
+    moved[axis_names(mesh).index(tp)] = (Shard(1) if S % n == 0
+                                         else Replicate())
+    return y.redistribute(mesh, moved).flatten(2)
 
 
 def seq_local(fn: Callable, qs: Sequence, kvs: Sequence):

@@ -8,6 +8,11 @@ import torch
 
 NEG_INF = -1e30
 
+#: Query rows a block of the plain version takes at most: the reference
+#: scan's query chunk (``_auto_q_chunk``, ``src/repro/models/attention.py:
+#: 131-139``).
+Q_BLOCK = 512
+
 
 def check_window(window: Optional[int], causal: bool) -> None:
     """Raises ValueError for a window the mask cannot take."""
@@ -30,25 +35,33 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     A hidden key weighs exactly 0, as in the reference's chunked scan
     (``jnp.where(ok, exp(s - m), 0)``, :187), so a row that sees no key at
-    all (a window with S > T + window) gives 0. The (BH, S, T) score
-    matrix is materialized, and updated in place to hold one such matrix
-    at a time.
+    all (a window with S > T + window) gives 0. The rows of q go in blocks
+    of at most Q_BLOCK, each against all T keys with one softmax over the
+    whole row, so the scores live at a time are one (BH, Q_BLOCK, T)
+    block, updated in place, never (BH, S, T); every (s, t) pair is
+    computed, as the reference's scan computes every tile.
     """
     check_window(window, causal)
     s_len, d = q.shape[1], q.shape[2]
     t_len = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    s = torch.einsum("bsd,btd->bst", q.float(), k.float()) * scale
-    hidden = None
-    if causal:
-        qpos = torch.arange(s_len, device=q.device)[:, None]
-        kpos = torch.arange(t_len, device=q.device)[None, :]
-        hidden = kpos > qpos
-        if window is not None:
-            hidden |= kpos <= qpos - window
-        s.masked_fill_(hidden, NEG_INF)
-    w = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
-    if hidden is not None:
-        w.masked_fill_(hidden, 0.0)
-    w = w.div_(w.sum(dim=-1, keepdim=True).clamp_min_(1e-30))
-    return torch.einsum("bst,btd->bsd", w, v.float()).to(q.dtype)
+    kt, vf = k.float().transpose(1, 2), v.float()
+    kpos = torch.arange(t_len, device=q.device)[None, :]
+    out = q.new_empty(q.shape)
+    for i in range(0, s_len, Q_BLOCK):
+        j = min(i + Q_BLOCK, s_len)
+        s = torch.bmm(q[:, i:j].float(), kt).mul_(scale)
+        hidden = None
+        if causal:
+            qpos = torch.arange(i, j, device=q.device)[:, None]
+            hidden = kpos > qpos
+            if window is not None:
+                hidden |= kpos <= qpos - window
+            s.masked_fill_(hidden, NEG_INF)
+        w = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+        if hidden is not None:
+            w.masked_fill_(hidden, 0.0)
+        w = w.div_(w.sum(dim=-1, keepdim=True).clamp_min_(1e-30))
+        out[:, i:j] = torch.bmm(w, vf)
+        del s, w
+    return out

@@ -17,8 +17,12 @@ What has no counterpart, and is left out: the reference's
 (they undo the CPU backend's f32 copies of bf16 operands, which an eager
 op stream does not make). The memory keys name the H100's 80 GB
 (``fits_hbm_80g``). A prefill cell's attention is K5's plain version here
-(no card), whose (B*H, S, S) score matrix the kernel never holds: its
-memory counts it. A decode cell takes the reference's KV dtype rule (int8
+(no card), on each rank's own heads (``shardctx.heads_local``: ceil(H/tp)
+query heads at most, as the reference's scan runs on its padded share of
+the heads), in query blocks of at most 512 rows against all T keys: the
+scores live at a time are one (B*H_local, 512, T) f32 block, as the
+reference's scan holds one tile and K5 none, and its FLOPs are the dense
+count, every (s, t) pair, as the scan's are. A decode cell takes the reference's KV dtype rule (int8
 for ``n_kv >= 32`` or ``n_experts >= 64``: qwen1.5-32b and llama4, and
 minicpm3-4b, whose MLA latent cache stays bf16 all the same), bf16
 weights, and its cache (``steps.cache_specs``) placed by

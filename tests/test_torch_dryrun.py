@@ -27,6 +27,13 @@ host devices set before jax starts).
     window set to 32 so that the ring splits on its sequence as at full
     size) runs.
 
+  * reduced qwen3-14b's prefill cells at S 8192 (B 2) on the same fake
+    mesh with head counts tp = 2 does not divide, (H, KV) = (5, 5) and
+    (6, 3) (``test_uneven_heads_prefill_counts_the_references_share``):
+    FLOPs a rank against the reference's ``analyze_hlo`` of the same cell
+    (its q-chunked scan, heads over tp as GSPMD pads them), and a peak
+    with no (B·H, S, S) score storage.
+
   * reduced llama4's cells on the same fake mesh run the MoE
     expert-parallel: a decode cell's MoE FLOPs a rank are the pick's count
     from the shapes (exact), and a prefill and a train cell count their
@@ -36,6 +43,7 @@ In this process: the op counter's live and peak bytes follow the
 tensors' lifetimes, on real and on fake tensors (exact).
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -260,6 +268,88 @@ def test_decode_cell_against_the_reference():
     assert long["n_chips"] == 4 and long["kv_dtype"] == "bfloat16"
     assert long["memory_per_device"]["cache_bytes"] > 0
     assert long["hlo"]["flops_per_device"] > 0
+
+
+PRE_S, PRE_B = 8192, 2
+#: (H, KV) -> how the port's FLOPs a rank are held to the reference's: the
+#: MHA case within FLOP_RTOL (both split q's 5 heads 3 + 2 over tp), the
+#: GQA case at most 1 + FLOP_RTOL times it (GSPMD keeps 4 of 6 heads a
+#: rank there, the port ceil(6/2) = 3)
+PRE_HEADS = {(5, 5): "within", (6, 3): "at most"}
+
+PORT_PREFILL = textwrap.dedent("""
+    import dataclasses, json
+    from repro_torch.configs import ShapeSpec, get_reduced
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_group, make_mesh
+    init_group("fake", world_size=4)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    out = {}
+    for h, kv in %r:
+        cfg = dataclasses.replace(get_reduced("qwen3-14b"), n_heads=h,
+                                  n_kv=kv)
+        out["%%d/%%d" %% (h, kv)] = dryrun.run_cell(
+            "qwen3-14b", "p", "single", mesh=mesh, cfg=cfg,
+            shape=ShapeSpec("p", %d, %d, "prefill"), peak_tensors=4)
+    print("RESULT" + json.dumps(out))
+""") % (list(PRE_HEADS), PRE_S, PRE_B)
+
+REF_PREFILL = textwrap.dedent("""
+    import os, json
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import dataclasses
+    import jax
+    jax.devices()
+    from repro.configs import ShapeSpec, get_reduced
+    from repro.launch import dryrun, hlo_analysis
+    from repro.launch.mesh import make_mesh
+    dryrun.SHAPES_BY_NAME = {"p": ShapeSpec("p", %d, %d, "prefill")}
+    out = {}
+    for h, kv in %r:
+        dryrun.get = lambda a, h=h, kv=kv: dataclasses.replace(
+            get_reduced(a), n_heads=h, n_kv=kv)
+        lowered, _ = dryrun.lower_cell("qwen3-14b", "p",
+                                       make_mesh((2, 2), ("data", "model")))
+        out["%%d/%%d" %% (h, kv)] = hlo_analysis.analyze_hlo(
+            lowered.compile().as_text()).flops
+    print("RESULT" + json.dumps(out))
+""") % (PRE_S, PRE_B, list(PRE_HEADS))
+
+
+@pytest.fixture(scope="module")
+def uneven_prefill():
+    return _run(PORT_PREFILL), _run(REF_PREFILL)
+
+
+@pytest.mark.parametrize("heads", list(PRE_HEADS), ids=lambda h: "%d-%d" % h)
+def test_uneven_heads_prefill_counts_the_references_share(uneven_prefill,
+                                                          heads):
+    """A prefill cell whose head counts tp 2 does not divide: the port's
+    attention runs on each rank's ceil(H/tp) query heads
+    (``shardctx.heads_local``), as the reference's q-chunked scan runs on
+    its share of the heads, and K5's plain version holds one query block
+    of scores at a time, as the scan holds one tile. FLOPs a rank: within
+    FLOP_RTOL of the reference's (MHA) or at most 1 + FLOP_RTOL times it
+    (GQA: GSPMD keeps more heads). Memory: no storage at the peak holds
+    (B/dp)·H·S·S elements (the rank's rows of every head's scores, which
+    the plain version held whole before it took query blocks, twice over:
+    its product and the product scaled), and the peak's temporaries stay
+    below one such f32 matrix, so the peak is below that earlier one's by
+    at least one."""
+    port, ref = uneven_prefill
+    key = "%d/%d" % heads
+    rec, want = port[key], ref[key]
+    flops = rec["hlo"]["flops_per_device"]
+    if PRE_HEADS[heads] == "within":
+        assert abs(flops - want) <= FLOP_RTOL * want, (flops, want)
+    else:
+        assert flops <= (1 + FLOP_RTOL) * want, (flops, want)
+    scores = PRE_B // 2 * heads[0] * PRE_S * PRE_S
+    mem = rec["memory_per_device"]
+    largest = mem["at_peak"]["largest"]
+    assert all(math.prod(d["shape"]) < scores for d in largest), largest
+    assert mem["temp_bytes"] < 4 * scores, mem
+    assert mem["fits_hbm_80g"] is True
 
 
 EP_B, EP_S = 8, 64

@@ -244,3 +244,52 @@ def test_window_refused_without_the_causal_mask_or_below_one(fn):
     if fn != "flash_mha":
         with pytest.raises(ValueError, match="causal"):
             call(window=4, causal=False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [tfa.ref.Q_BLOCK, 100])
+@pytest.mark.parametrize("causal,window,t", [(True, None, 1100),
+                                             (True, 100, 1100),
+                                             (False, None, 1500)],
+                         ids=["causal", "window", "no-mask"])
+def test_plain_version_in_query_blocks_equals_one_block(monkeypatch, dtype,
+                                                        block, causal, window,
+                                                        t):
+    """K5's plain version takes q's rows in blocks (at most Q_BLOCK, the
+    reference scan's query chunk), each against every key with one
+    softmax over the whole row: at S = 1100 (not a multiple of 512, so
+    the last block is ragged) it equals the one-block version (Q_BLOCK =
+    S) bit for bit, causal with and without a window and without the mask
+    at T != S."""
+    rng = np.random.default_rng(11)
+    s = 1100
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (3, n, 16))).to(
+        getattr(torch, dtype)) for n in (s, t, t))
+    kw = dict(causal=causal, window=window)
+    monkeypatch.setattr(tfa.ref, "Q_BLOCK", block)
+    got = tfa.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    monkeypatch.setattr(tfa.ref, "Q_BLOCK", s)
+    assert torch.equal(got, tfa.flash_attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_version_holds_one_query_block_of_scores(causal):
+    """On fake tensors (as the dry run calls it): every (s, t) pair is
+    computed (4·BH·S·T·d FLOPs, the reference scan's dense count), no
+    storage live at the peak is larger than one (BH, Q_BLOCK, T) f32
+    block of scores, where the one-block version held (BH, S, T), and the
+    temporaries (that block, its mask, k, v and the output) stay below two
+    such blocks."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.hlo_analysis import OpCounter
+    bh, s, d = 4, 2048 + 100, 64
+    with FakeTensorMode():
+        q = torch.zeros((bh, s, d), dtype=torch.bfloat16)
+        with OpCounter(at_peak=True) as c:
+            c.track(q)
+            tfa.flash_attention_ref(q, q, q, causal=causal)
+            peak = c.at_peak(1)
+    assert c.flops == 4 * bh * s * s * d
+    assert peak["largest"][0]["bytes"] <= 4 * bh * tfa.ref.Q_BLOCK * s
+    assert c.peak - 2 * q.numel() < 2 * 4 * bh * tfa.ref.Q_BLOCK * s

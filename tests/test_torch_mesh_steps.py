@@ -49,6 +49,20 @@ take one AdamW step (lr 1e-3, warmup 2, clip 1.0) on the same numpy batch
     sides).
   * qwen3-14b: the port's sharded step and gradient against its own
     unsharded ones.
+  * head counts tp = 2 does not divide (``UNEVEN``, prefill only): reduced
+    qwen3-14b and whisper-base with 6 query heads and 3 KV heads (KV 3 over
+    tp 2: each rank gathers the KV heads its 3 query heads read), qwen3
+    with 5 and 5 (MHA: q, k and v split 3 + 2) and whisper with 3 and 1
+    (q split 2 + 1, the one KV head gathered); whisper's encoder and cross
+    attention run K5 without the mask, its cross attention with T (31
+    frames) != S, and its encoder's 31 rows do not split over tp (the
+    output is gathered, not moved to the sequence). The reference splits
+    q's heads over tp as GSPMD pads them; the port gives each rank at most
+    ceil(H/tp) query heads (``shardctx.heads_local``). Their sharded
+    prefills' logits against the reference's sharded prefill and against
+    the port's unsharded prefill, and each rank's K5 calls: at most
+    ceil(H/tp) query heads, one KV head a query head, and the two tp ranks
+    of a data rank together every head once.
 
 Tolerances are tests/test_torch_train.py's, for the same reasons: loss
 LOSS_RTOL = 2e-3 relative, the gradient's global norm GNORM_RTOL = 2e-2
@@ -89,6 +103,13 @@ CASES = {"qwen3-14b": ("qwen3-14b", {}),
          "llama4-maverick-400b-a17b": ("llama4-maverick-400b-a17b", {}),
          "mixtral-8x7b-e3": ("mixtral-8x7b", {"n_experts": 3})}
 ARCHS = tuple(CASES)
+#: prefill-only cases whose head counts tp = 2 does not divide
+UNEVEN = {"qwen3-14b-h6kv3": ("qwen3-14b", {"n_heads": 6, "n_kv": 3}),
+          "whisper-base-h6kv3": ("whisper-base", {"n_heads": 6, "n_kv": 3}),
+          "qwen3-14b-h5kv5": ("qwen3-14b", {"n_heads": 5, "n_kv": 5}),
+          "whisper-base-h3kv1": ("whisper-base", {"n_heads": 3, "n_kv": 1})}
+#: whisper's encoder frames: odd, so the encoder's sequence does not split
+FRAMES = 31
 
 REF = textwrap.dedent("""
     import os, sys
@@ -146,8 +167,25 @@ REF = textwrap.dedent("""
             pre = jax.jit(steps.make_prefill(cfg, mesh=mesh, seq_shard=True))
             out[arch + "/logits"] = np.asarray(
                 pre(pd, {"tokens": batch["tokens"]}))
+    for i, (case, (name, over)) in enumerate(%r.items()):
+        cfg = dataclasses.replace(configs.get_reduced(name), **over)
+        params = build(cfg).init(jax.random.key(100 + i))
+        flat(case + "/p0/", params)
+        rng = np.random.default_rng(100 + i)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+        if cfg.enc_layers:
+            batch["frames"] = np.asarray(jax.numpy.asarray(
+                rng.standard_normal((B, %d, cfg.d_model)),
+                jax.numpy.bfloat16).astype(np.float32))
+        for k, a in batch.items():
+            out[case + "/" + k] = a
+        pd = jax.device_put(params, params_sharding(params, mesh))
+        pre = jax.jit(steps.make_prefill(cfg, mesh=mesh, seq_shard=True))
+        jb = {k: jax.numpy.asarray(a, jax.numpy.bfloat16 if k == "frames"
+                                   else None) for k, a in batch.items()}
+        out[case + "/logits"] = np.asarray(pre(pd, jb), np.float32)
     np.savez(sys.argv[1], **out)
-""") % (B, S, OCFG, CASES)
+""") % (B, S, OCFG, CASES, UNEVEN, FRAMES)
 
 
 def _nest(flat: dict) -> dict:
@@ -202,9 +240,48 @@ def _pinned_to_the_unsharded_routing(cfg, plain, batch, mesh):
     return (lambda i: (own[i].expert_ids, own[i].keep)), own
 
 
+def _uneven_prefills(ref, mesh, plan, model_of):
+    """``UNEVEN``'s cases: (rank 0's results, this rank's K5 calls as
+    (query heads, KV heads) a call, by case)."""
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.planner import shard_model
+    from repro_torch.kernels.flash_attn import flash_mha
+    from repro_torch.models import attention, encdec
+    from repro_torch import configs
+    calls, out, k5 = [], {}, {}
+
+    def recorded(q, k, v, **kw):
+        calls.append((q.shape[2], k.shape[2]))
+        return flash_mha(q, k, v, **kw)
+
+    for case, (name, over) in UNEVEN.items():
+        cfg = dataclasses.replace(configs.get_reduced(name), **over)
+        tree = _tree_of(ref, case, "p0")
+        batch = {"tokens": torch.from_numpy(ref[f"{case}/tokens"])}
+        if cfg.enc_layers:
+            batch["frames"] = torch.from_numpy(
+                ref[f"{case}/frames"]).to(torch.bfloat16)
+        served = shard_model(model_of(cfg, tree), mesh, plan)
+        pre = steps.make_prefill(cfg, mesh=mesh, seq_shard=True,
+                                 device="cpu")
+        calls.clear()
+        saved = attention.flash_mha, encdec.flash_mha
+        attention.flash_mha = encdec.flash_mha = recorded
+        try:
+            logits = pre(served, batch).full_tensor()
+        finally:
+            attention.flash_mha, encdec.flash_mha = saved
+        k5[case] = list(calls)
+        plain = steps.make_prefill(cfg, device="cpu")(model_of(cfg, tree),
+                                                      batch)
+        out[case] = {"logits": logits.float().numpy(),
+                     "logits_plain": plain.float().numpy()}
+    return out, k5
+
+
 def _port(rank, world, ref_path):
     """Each rank's part; rank 0 returns the results (full tensors, gathered
-    by every rank)."""
+    by every rank), every rank its K5 calls on ``UNEVEN``'s cases."""
     from repro_torch import configs, optim
     from repro_torch._tree import flatten_with_paths, leaves, unflatten
     from repro_torch.distributed import steps
@@ -278,7 +355,8 @@ def _port(rank, world, ref_path):
             res["grads_mesh"] = ref_layout(
                 cfg, unflatten(sharded.params(), leaves(g1)))
         out[arch] = res
-    return out if rank == 0 else None
+    uneven, k5 = _uneven_prefills(ref, mesh, plan, model_of)
+    return {**out, **uneven, "k5": k5} if rank == 0 else {"k5": k5}
 
 
 @pytest.fixture(scope="module")
@@ -290,7 +368,8 @@ def results(tmp_path_factory):
                        env={**os.environ, "PYTHONPATH": "src",
                             "JAX_PLATFORMS": "cpu"})
     assert r.returncode == 0, r.stdout + r.stderr
-    port = _torch_ranks.run(_port, 4, tmp, ref_path)[0]
+    ranks = _torch_ranks.run(_port, 4, tmp, ref_path)
+    port = {**ranks[0], "k5_ranks": [r["k5"] for r in ranks]}
     return np.load(ref_path), port
 
 
@@ -368,3 +447,41 @@ def test_moe_cases_take_the_references_layout(results, arch):
     _, port = results
     assert port[arch]["moe_layouts"] == [MOE_LAYOUTS[arch]]
     assert port[arch]["flips"] <= MAX_FLIPS
+
+
+def _logit_err(got, want) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("case", list(UNEVEN))
+def test_sharded_prefill_on_uneven_heads_matches_the_reference(results,
+                                                               case):
+    """Head counts tp 2 does not divide: the logits of the port's sharded
+    prefill (ceil(H/tp) query heads a rank or fewer) against the
+    reference's sharded prefill and the port's unsharded prefill."""
+    ref, port = results
+    got, want = port[case]["logits"], ref[f"{case}/logits"]
+    assert got.shape == want.shape == (B, S, 256)
+    assert _logit_err(got, want) <= LOGIT_TOL
+    assert _logit_err(got, port[case]["logits_plain"]) <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("case", list(UNEVEN))
+def test_each_ranks_k5_call_holds_its_own_heads(results, case):
+    """Each rank's K5 calls (one an attention: whisper's encoder layers,
+    and its decoder's self and cross attention a layer) hold at most
+    ceil(H/tp) query heads, each with its own KV head (n_rep 1: the KV
+    heads gathered by index); the two tp ranks of a data rank (ranks
+    2d and 2d + 1 of the (2, 2) mesh) hold every head once a call."""
+    from repro_torch import configs
+    name, over = UNEVEN[case]
+    cfg = dataclasses.replace(configs.get_reduced(name), **over)
+    H, per_rank = cfg.n_heads, -(-cfg.n_heads // 2)
+    n_calls = cfg.n_layers * (2 if cfg.enc_layers else 1) + cfg.enc_layers
+    ranks = [r[case] for r in results[1]["k5_ranks"]]
+    for calls in ranks:
+        assert len(calls) == n_calls
+        assert all(0 < h <= per_rank and kv == h for h, kv in calls), calls
+    for d in (0, 1):
+        assert [a[0] + b[0] for a, b in zip(ranks[2 * d], ranks[2 * d + 1])
+                ] == [H] * n_calls
