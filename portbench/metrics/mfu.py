@@ -1,0 +1,12 @@
+"""The whole step's share of the card's int8 peak, in %: the operations the
+algorithm needs for every event completed in the window (``ops_per_event``
+of the configuration's reference, at the published widths), over the
+window's length times the data-sheet peak (``roofline.PEAKS``)."""
+
+
+def read(run):
+    if run.peak is None:
+        return None
+    ops = run.window.done * run.batch_events * run.ref.ops_per_event(
+        run.config)
+    return 100.0 * ops / (run.window.seconds * run.peak[0])
