@@ -11,7 +11,11 @@ with nvcc's output; nothing falls back.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a nonzero code. ``launches`` counts, per kernel, the
-launches its wrapper made.
+launches its wrapper made. ``spans`` times the K2/K3 wrappers from inside,
+in phases, only while a ``torch.profiler`` records, and the library's first
+load (``repro_torch.library``) always; ``repro_torch.obs.tracing`` re-exports
+it. A build by nvcc writes one line on stderr, so a process that compiled
+says so.
 """
 from __future__ import annotations
 
@@ -20,10 +24,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -81,6 +87,96 @@ class LaunchCounts:
 
 launches = LaunchCounts()
 
+#: True while a torch profiler records: the one query a wrapper's call makes
+#: for tracing when none does.
+recording = torch._C._autograd._profiler_enabled
+# A profiler range: the fast one where this torch has it (record_function
+# costs about fifteen times as much a range).
+_Range = getattr(torch._C._profiler, "_RecordFunctionFast", None) or \
+    torch.autograd.profiler.record_function
+_clock = time.perf_counter_ns
+
+
+class CallSpan:
+    """One wrapper call while a profiler records, in flat phases: each is a
+    profiler range, nested in the caller's ranges, that starts where the last
+    one ended, so the clock is read once a boundary."""
+
+    __slots__ = ("_owner", "_phase", "_done")
+
+    def __init__(self, owner: "HotSpans", phase: str) -> None:
+        self._owner = owner
+        self._done: List[Tuple[str, int]] = []
+        self._open(phase, _clock())
+
+    def _open(self, name: str, t: int) -> None:
+        rng = _Range(name)
+        rng.__enter__()
+        self._phase = (name, rng, t)
+
+    def _close(self, t: int) -> None:
+        name, rng, t_open = self._phase
+        rng.__exit__(None, None, None)
+        self._done.append((name, t - t_open))
+        self._phase = None
+
+    def phase(self, name: Optional[str]) -> None:
+        """Ends the current phase, if any, and starts ``name`` (None: the
+        rest of the call is in no phase)."""
+        t = _clock()
+        if self._phase is not None:
+            self._close(t)
+        if name is not None:
+            self._open(name, t)
+
+    def end(self) -> None:
+        if self._phase is not None:
+            self._close(_clock())
+        self._owner.add_all(self._done)
+
+
+class HotSpans:
+    """Count and host nanoseconds by span name, for spans on the port's hot
+    path. :meth:`begin` returns None unless a profiler records; a span kept
+    whatever runs (a once-a-process set-up) goes to :meth:`add`."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._totals: Dict[str, List[int]] = {}
+
+    def begin(self, phase: str) -> Optional[CallSpan]:
+        """A wrapper's call, its first phase ``phase`` open, or None where no
+        profiler records (then nothing else is done)."""
+        if not recording():
+            return None
+        return CallSpan(self, phase)
+
+    def add(self, name: str, ns: int) -> None:
+        self.add_all(((name, ns),))
+
+    def add_all(self, items) -> None:
+        with self._lock:
+            for name, ns in items:
+                tot = self._totals.setdefault(name, [0, 0])
+                tot[0] += 1
+                tot[1] += ns
+
+    def totals(self) -> Dict[str, Tuple[int, int]]:
+        """name -> (spans, host nanoseconds)."""
+        with self._lock:
+            return {k: (n, ns) for k, (n, ns) in self._totals.items()}
+
+    def mean_us(self, name: str) -> Optional[float]:
+        """Host microseconds a span of ``name``; None where there was
+        none."""
+        n, ns = self.totals().get(name, (0, 0))
+        return ns / n * 1e-3 if n else None
+
+
+#: The port's one recorder: ``cascade_mlp/ops.py`` (K2, K3) and
+#: :func:`library` record into it.
+spans = HotSpans()
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
@@ -128,6 +224,7 @@ def build() -> Path:
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
+    t0 = time.perf_counter()
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     cus, _ = _sources()
@@ -139,6 +236,8 @@ def build() -> Path:
                            os.path.join(tmp, LIB_NAME)]])
         (out_dir / "build.log").write_text("\n".join(logs))
         os.replace(os.path.join(tmp, LIB_NAME), lib_path)
+    print(f"repro_torch: built {lib_path} with nvcc in "
+          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
     return lib_path
 
 
@@ -149,12 +248,14 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("the CUDA kernels need a CUDA device")
+            t0 = time.perf_counter_ns()
             lib = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib
+            spans.add("repro_torch.library", time.perf_counter_ns() - t0)
         return _lib
 
 

@@ -5,6 +5,13 @@ launches ``csrc/cascade_mlp.cu`` or raises. Each model's weights are packed
 once per model object, by :func:`packed_mma_chain`, into the tensor-core
 fragment layout that both kernels copy into shared memory, and cached
 beside it.
+
+While a ``torch.profiler`` records, ``_build.spans`` times each call in
+flat phases, each a profiler range: ``repro_torch.checks`` (arguments,
+device, layout), ``repro_torch.pack`` (the packed weights' lookup, the
+shared-memory arithmetic), ``repro_torch.alloc`` (the output) and
+``repro_torch.launch`` (the library, the stream, the C entry point, the
+count). A CPU call's plain version runs after its checks, in no phase.
 """
 from __future__ import annotations
 
@@ -171,27 +178,41 @@ def _check_smem(nbytes: int) -> None:
 
 def cascade_mlp(x: torch.Tensor, qmlp: QuantizedMLP) -> torch.Tensor:
     """Fused MLP forward. x: (M, K0) int8 (any M/K0); returns (M, N_L) int8."""
-    _check_input(x, qmlp, (2,))
-    if _build.on_cpu(x, qmlp.layers[0].w_q):
-        return cascade_mlp_ref(x, qmlp)
-    _build.require_contiguous(x=x)
-    pc = packed_mma_chain(qmlp)
-    stride = pc.stride
-    # Weights, biases, and each warp's two 16-row activation buffers.
-    smem = pc.smem_bytes + 2 * BLOCK_ROWS * stride
-    _check_smem(smem)
-    rows = x.shape[0]
-    out = torch.empty((rows, pc.widths[-1]), dtype=torch.int8, device=x.device)
-    if rows == 0:
+    span = _build.spans.begin("repro_torch.checks")
+    try:
+        _check_input(x, qmlp, (2,))
+        if _build.on_cpu(x, qmlp.layers[0].w_q):
+            if span is not None:
+                span.phase(None)
+            return cascade_mlp_ref(x, qmlp)
+        _build.require_contiguous(x=x)
+        if span is not None:
+            span.phase("repro_torch.pack")
+        pc = packed_mma_chain(qmlp)
+        stride = pc.stride
+        # Weights, biases, and each warp's two 16-row activation buffers.
+        smem = pc.smem_bytes + 2 * BLOCK_ROWS * stride
+        _check_smem(smem)
+        rows = x.shape[0]
+        if span is not None:
+            span.phase("repro_torch.alloc")
+        out = torch.empty((rows, pc.widths[-1]), dtype=torch.int8,
+                          device=x.device)
+        if rows == 0:
+            return out
+        if span is not None:
+            span.phase("repro_torch.launch")
+        lib = _build.library()
+        code = lib.cascade_mlp_launch(
+            x.data_ptr(), pc.w.data_ptr(), pc.b.data_ptr(),
+            ctypes.addressof(pc.meta), out.data_ptr(), rows, x.shape[1],
+            BLOCK_ROWS, stride, smem, _build.stream_of(x))
+        _build.check(code, "cascade_mlp")
+        _build.launches.add("cascade_mlp")
         return out
-    lib = _build.library()
-    code = lib.cascade_mlp_launch(
-        x.data_ptr(), pc.w.data_ptr(), pc.b.data_ptr(),
-        ctypes.addressof(pc.meta), out.data_ptr(), rows, x.shape[1],
-        BLOCK_ROWS, stride, smem, _build.stream_of(x))
-    _build.check(code, "cascade_mlp")
-    _build.launches.add("cascade_mlp")
-    return out
+    finally:
+        if span is not None:
+            span.end()
 
 
 def deepsets(x: torch.Tensor, phi: QuantizedMLP, rho: QuantizedMLP, *,
@@ -204,26 +225,37 @@ def deepsets(x: torch.Tensor, phi: QuantizedMLP, rho: QuantizedMLP, *,
     log2(Mp) (``agg`` is accepted and, as in the TPU kernel, changes
     nothing); the padded rows therefore add phi(0) to it.
     """
-    if agg not in ("mean", "sum"):
-        raise ValueError(f"agg must be 'mean' or 'sum', got {agg!r}")
-    _check_input(x, phi, (2, 3))
-    if rho.layers[0].w_q.shape[0] != phi.layers[-1].w_q.shape[1]:
-        raise ValueError("rho's input width differs from phi's output width")
-    squeeze = x.dim() == 2
-    xb = x[None] if squeeze else x
-    batch, m, f = xb.shape
-    if m == 0:
-        raise ValueError("deepsets needs at least one set element")
-    mp = 1 << (m - 1).bit_length()
-    if _build.on_cpu(xb, phi.layers[0].w_q, rho.layers[0].w_q):
-        out = deepsets_ref(F.pad(xb, (0, 0, 0, mp - m)), phi, rho, agg=agg)
-    else:
-        out = _launch_deepsets(xb, phi, rho, batch, m, mp, f)
-    return out[0] if squeeze else out
+    span = _build.spans.begin("repro_torch.checks")
+    try:
+        if agg not in ("mean", "sum"):
+            raise ValueError(f"agg must be 'mean' or 'sum', got {agg!r}")
+        _check_input(x, phi, (2, 3))
+        if rho.layers[0].w_q.shape[0] != phi.layers[-1].w_q.shape[1]:
+            raise ValueError("rho's input width differs from phi's output "
+                             "width")
+        squeeze = x.dim() == 2
+        xb = x[None] if squeeze else x
+        batch, m, f = xb.shape
+        if m == 0:
+            raise ValueError("deepsets needs at least one set element")
+        mp = 1 << (m - 1).bit_length()
+        if _build.on_cpu(xb, phi.layers[0].w_q, rho.layers[0].w_q):
+            if span is not None:
+                span.phase(None)
+            out = deepsets_ref(F.pad(xb, (0, 0, 0, mp - m)), phi, rho,
+                               agg=agg)
+        else:
+            out = _launch_deepsets(xb, phi, rho, batch, m, mp, f, span)
+        return out[0] if squeeze else out
+    finally:
+        if span is not None:
+            span.end()
 
 
-def _launch_deepsets(x, phi, rho, batch, m, mp, f):
+def _launch_deepsets(x, phi, rho, batch, m, mp, f, span):
     _build.require_contiguous(x=x)
+    if span is not None:
+        span.phase("repro_torch.pack")
     pp, pr = packed_mma_chain(phi), packed_mma_chain(rho)
     stride = max(pp.stride, pr.stride)
     # Shared memory, laid out as deepsets_kernel lays it out: the packed
@@ -240,9 +272,13 @@ def _launch_deepsets(x, phi, rho, batch, m, mp, f):
     events = min(EVENTS_PER_BLOCK, max(batch, 1),
                  (_build.MAX_SMEM_BYTES - fixed) // (EVENT_WARPS * per_warp))
     n_out = pr.widths[-1]
+    if span is not None:
+        span.phase("repro_torch.alloc")
     out = torch.empty((batch, 1, n_out), dtype=torch.int8, device=x.device)
     if batch == 0:
         return out
+    if span is not None:
+        span.phase("repro_torch.launch")
     lib = _build.library()
     code = lib.deepsets_launch(
         x.data_ptr(), pack.data_ptr(), fixed, ctypes.addressof(pp.meta),

@@ -22,6 +22,15 @@ converted from AIE cycles by :class:`repro_torch.sim.trace.ChromeTrace` (a
 subclass of this Tracer); runtime spans use the tracer's wall clock
 (:meth:`Tracer.now_us` / :meth:`Tracer.region`), anchored at tracer
 construction so a run starts near t=0.
+
+Beside it, :data:`spans` (a :class:`HotSpans`, kept in
+:mod:`repro_torch.kernels._build` so that the kernel wrappers import it
+without this package) times the port's K2/K3 wrappers from inside, only while
+a ``torch.profiler`` records: each call is a run of flat, successive profiler
+ranges (checks, packed weights, output, launch) on the clock the profiler
+shares with the device's kernels and copies, whose host nanoseconds add up by
+name. With no profiler recording, a wrapper's call costs one query of the
+profiler's state.
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ import json
 import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
+
+from repro_torch.kernels._build import HotSpans, spans  # noqa: F401
 
 #: Stable pid numbering so lanes group predictably in the viewer. New pid
 #: names allocate increasing ids per tracer instance.

@@ -273,6 +273,71 @@ def test_each_wrapper_counts_its_launches(dev):
     assert launches.get("cascade_mlp") == 1     # the plain version counts nothing
 
 
+SPAN_PHASES = ("repro_torch.checks", "repro_torch.pack", "repro_torch.alloc",
+               "repro_torch.launch")
+
+
+def _k2_k3_call(wrapper, dev):
+    """A K2 or K3 call at the benchmark's widths, warmed up; its kernel's
+    name."""
+    rng = np.random.default_rng(11)
+    if wrapper == "cascade_mlp":
+        q = _qmlp(rng, [16, 64, 32, 32, 32, 5]).to(dev)
+        x = _int8(rng, (64_000, 16), dev)
+        call = lambda: tcm.cascade_mlp(x, q)  # noqa: E731
+        kernel = "cascade_mlp_kernel"
+    else:
+        phi, rho = _deepsets(rng, 21, [32, 32, 32], [32, 10])
+        phi, rho = phi.to(dev), rho.to(dev)
+        x = _int8(rng, (1000, 32, 21), dev, -40, 40)
+        call = lambda: tcm.deepsets(x, phi, rho)  # noqa: E731
+        kernel = "deepsets_kernel"
+    call()
+    torch.cuda.synchronize(dev)
+    return call, kernel
+
+
+@pytest.mark.parametrize("wrapper", ["cascade_mlp", "deepsets"])
+def test_wrapper_spans_nest_in_order_around_the_launch(dev, wrapper):
+    """Under the profiler a call is one of each phase, in order, inside the
+    caller's range; the launch phase holds the runtime's launch of the
+    kernel, which starts on the device after the phase starts."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels._build import spans
+    call, kernel = _k2_k3_call(wrapper, dev)
+    before = spans.totals()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("caller.call"):
+            call()
+        torch.cuda.synchronize(dev)
+    events = prof.profiler.kineto_results.events()
+
+    def host(name):
+        return [e for e in events if e.name() == name
+                and e.device_type().name == "CPU"]
+    (outer,) = host("caller.call")
+    phases = [host(name) for name in SPAN_PHASES]
+    assert [len(p) for p in phases] == [1] * len(SPAN_PHASES)
+    phases = [p[0] for p in phases]
+    assert outer.start_ns() <= phases[0].start_ns()
+    for a, b in zip(phases, phases[1:]):
+        assert a.start_ns() <= a.end_ns() <= b.start_ns()
+    assert phases[-1].end_ns() <= outer.end_ns()
+    launch = phases[-1]
+    runtime = [e for e in events if e.name().startswith("cudaLaunchKernel")
+               and launch.start_ns() <= e.start_ns()
+               and e.end_ns() <= launch.end_ns()]
+    (k,) = [e for e in events if e.device_type().name == "CUDA"
+            and kernel in e.name()]
+    assert len(runtime) == 1
+    assert runtime[0].correlation_id() == k.correlation_id()
+    assert k.start_ns() > launch.start_ns()
+    after = spans.totals()
+    for name in SPAN_PHASES:
+        assert after[name][0] == before.get(name, (0, 0))[0] + 1
+
+
 @pytest.mark.parametrize("m", [1, 3, 4, 7, 32, 64, 100, 4096])
 @pytest.mark.parametrize("f", [5, 64, 130, 1000])
 def test_global_agg_equals_plain(dev, m, f):
