@@ -9,9 +9,11 @@ keyed by a hash of the sources and flags and kept under ``build/repro_torch/``
 at the repository root, so a second process reuses it. A failed build raises
 with nvcc's output; nothing falls back.
 
-Every C entry point returns ``cudaGetLastError()`` after its launch;
+Every C entry point returns ``cudaGetLastError()`` after its launch (one
+that launches nothing, a CUDA error code);
 :func:`check` raises on a nonzero code. ``launches`` counts, per kernel, the
-launches its wrapper made. ``spans`` times the K2/K3 wrappers from inside,
+launches its wrapper made, and ``plans`` the launch plans the K2/K3 wrappers
+built. ``spans`` times the K2/K3 wrappers from inside,
 in phases, only while a ``torch.profiler`` records, and the library's first
 load (``repro_torch.library``) always; ``repro_torch.obs.tracing`` re-exports
 it. A build by nvcc writes one line on stderr, so a process that compiled
@@ -50,11 +52,17 @@ _SIGNATURES = {
                           _P],
     # x, w, bias, out, m, k, n, shift, relu, out_int8, stream
     "mm_int8_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, w, b, meta, out, rows, k0, block_rows, stride, smem_bytes, stream
-    "cascade_mlp_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, pack, pack_bytes, phi_meta, rho_meta, out, batch, m, mp, k0,
-    # agg_shift, stride, xraw, warp_bytes, events, smem_bytes, stream
-    "deepsets_launch": [_P, _P, _I, _P, _P, _P] + [_I] * 10 + [_P],
+    # w, b, meta, k0, block_rows, stride, smem_bytes, device, &plan
+    "cascade_mlp_plan_new": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # plan, x, out, rows, stream
+    "cascade_mlp_plan_launch": [_P, _P, _P, _I, _P],
+    "cascade_mlp_plan_free": [_P],
+    # pack, pack_bytes, phi_meta, rho_meta, k0, stride, xraw, warp_bytes,
+    # events, device, &plan
+    "deepsets_plan_new": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # plan, x, out, batch, m, stream
+    "deepsets_plan_launch": [_P, _P, _P, _I, _I, _P],
+    "deepsets_plan_free": [_P],
 }
 
 # Shared memory one block may use on sm_90 (227 KB).
@@ -86,6 +94,10 @@ class LaunchCounts:
 
 
 launches = LaunchCounts()
+#: Launch plans built, per kernel (``cascade_mlp/ops.py``): one a model (K2)
+#: or a (phi, rho) pair (K3), so a process's launches less its builds are the
+#: calls that found their plan built.
+plans = LaunchCounts()
 
 #: True while a torch profiler records: the one query a wrapper's call makes
 #: for tracing when none does.
@@ -265,8 +277,10 @@ def check(code: int, name: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The current stream of ``t``'s device in the calling thread."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of ``t``'s device in the calling thread: the handle
+    ``torch.cuda.current_stream(t.device).cuda_stream`` holds, read without
+    making a ``Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

@@ -501,59 +501,106 @@ deepsets_kernel(const int8_t* __restrict__ x,
   }
 }
 
-cudaError_t allow_smem(const void* kernel, int smem_bytes) {
+// Raises `kernel`'s limit of dynamic shared memory on `device` to at least
+// smem_bytes, never lowering it: every plan of the kernel on the device
+// launches under the one limit, the largest any of them asked for.
+cudaError_t allow_smem(const void* kernel, int smem_bytes, int device) {
   if (smem_bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes);
+  int prev;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return err;
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess && attr.maxDynamicSharedSizeBytes < smem_bytes)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return err;
 }
+
+// A K2 launch plan: what a launch needs that depends only on the model and
+// its device, made once a model by the wrapper, which keeps w and b alive
+// while the plan lives.
+struct CascadePlan {
+  Chain c;
+  const int8_t* w;
+  const int* b;
+  int k0, block_rows, stride, smem_bytes;
+};
+
+// A K3 launch plan, the same for a (phi, rho) pair: every field of the
+// launch's DsShape but those of x (batch, m, mp, agg_shift, xvec), and the
+// events a block holds at most.
+struct DeepsetsPlan {
+  const unsigned char* pack;
+  DsShape s;
+  int events;
+};
 
 }  // namespace
 
-extern "C" int cascade_mlp_launch(const void* x, const void* w, const void* b,
-                                  const void* meta, void* out, int rows, int k0,
-                                  int block_rows, int stride, int smem_bytes,
-                                  void* stream) {
-  const Chain c = chain_from_meta(static_cast<const int*>(meta));
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(cascade_mlp_kernel),
-                               smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// w, b, meta: the packed chain (cascade_mlp/ops.py PackedChain); smem_bytes:
+// the weights, biases and each warp's two activation buffers. Writes the
+// plan's handle to *plan.
+extern "C" int cascade_mlp_plan_new(const void* w, const void* b,
+                                    const void* meta, int k0, int block_rows,
+                                    int stride, int smem_bytes, int device,
+                                    void** plan) {
   if (block_rows % kWarpRows != 0 || block_rows > 4 * kWarpRows)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int xvec = k0 % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int grid = (rows + block_rows - 1) / block_rows;
-  cascade_mlp_kernel<<<grid, 32 * (block_rows / kWarpRows), smem_bytes,
+  const cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(cascade_mlp_kernel), smem_bytes, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *plan = new CascadePlan{chain_from_meta(static_cast<const int*>(meta)),
+                          static_cast<const int8_t*>(w),
+                          static_cast<const int*>(b), k0, block_rows, stride,
+                          smem_bytes};
+  return static_cast<int>(cudaSuccess);
+}
+
+extern "C" int cascade_mlp_plan_launch(const void* plan, const void* x,
+                                       void* out, int rows, void* stream) {
+  const CascadePlan& p = *static_cast<const CascadePlan*>(plan);
+  const int xvec = p.k0 % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int grid = (rows + p.block_rows - 1) / p.block_rows;
+  cascade_mlp_kernel<<<grid, 32 * (p.block_rows / kWarpRows), p.smem_bytes,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const int*>(b), c, static_cast<int8_t*>(out), rows, k0,
-      stride, xvec);
+      static_cast<const int8_t*>(x), p.w, p.b, p.c, static_cast<int8_t*>(out),
+      rows, p.k0, p.stride, xvec);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cascade_mlp_plan_free(void* plan) {
+  delete static_cast<CascadePlan*>(plan);
+  return static_cast<int>(cudaSuccess);
 }
 
 // pack: phi's and rho's weights, biases and layer records back to back, as
 // deepsets_kernel copies them into shared memory (pack_bytes, a multiple of
-// 16); phi_meta, rho_meta: the same chains as chain_from_meta reads them.
-extern "C" int deepsets_launch(const void* x, const void* pack, int pack_bytes,
-                               const void* phi_meta, const void* rho_meta,
-                               void* out, int batch, int m, int mp, int k0,
-                               int agg_shift, int stride, int xraw,
-                               int warp_bytes, int events, int smem_bytes,
-                               void* stream) {
+// 16); phi_meta, rho_meta: the same chains as chain_from_meta reads them;
+// warp_bytes: a warp's share of shared memory; events: the most a block
+// holds. Writes the plan's handle to *plan.
+extern "C" int deepsets_plan_new(const void* pack, int pack_bytes,
+                                 const void* phi_meta, const void* rho_meta,
+                                 int k0, int stride, int xraw, int warp_bytes,
+                                 int events, int device, void** plan) {
   const int* pm = static_cast<const int*>(phi_meta);
   const int* rm = static_cast<const int*>(rho_meta);
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(deepsets_kernel),
-                               smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (events < 1 || events * kEventWarps > kMaxWarps || pm[0] < 1 ||
       pm[0] > REPRO_MAX_LAYERS || rm[0] < 1 || rm[0] > REPRO_MAX_LAYERS ||
       pack_bytes % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  DsShape s;
-  s.batch = batch;
-  s.m = m;
-  s.mp = mp;
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(deepsets_kernel),
+                 pack_bytes + events * kEventWarps * warp_bytes, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  DsShape s = {};
   s.k0 = k0;
-  s.agg_shift = agg_shift;
   s.stride = stride;
   s.xraw = xraw;
   s.warp_bytes = warp_bytes;
@@ -564,12 +611,38 @@ extern "C" int deepsets_launch(const void* x, const void* pack, int pack_bytes,
   s.rho_w_bytes = rm[1];
   s.rho_b_count = rm[2];
   s.pack_bytes = pack_bytes;
-  s.xvec = static_cast<long long>(m) * k0 % 16 == 0 &&
+  *plan = new DeepsetsPlan{static_cast<const unsigned char*>(pack), s, events};
+  return static_cast<int>(cudaSuccess);
+}
+
+// batch >= 1 events of m >= 1 set rows each. The set is padded to mp, the
+// power of two at or above m, and the set sum requantized by log2(mp).
+extern "C" int deepsets_plan_launch(const void* plan, const void* x, void* out,
+                                    int batch, int m, void* stream) {
+  const DeepsetsPlan& p = *static_cast<const DeepsetsPlan*>(plan);
+  if (batch < 1 || m < 1 || m > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DsShape s = p.s;
+  s.batch = batch;
+  s.m = m;
+  s.mp = 1;
+  s.agg_shift = 0;
+  while (s.mp < m) {
+    s.mp <<= 1;
+    ++s.agg_shift;
+  }
+  s.xvec = static_cast<long long>(m) * s.k0 % 16 == 0 &&
            reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int events = batch < p.events ? batch : p.events;
   const int grid = (batch + events - 1) / events;
-  deepsets_kernel<<<grid, 32 * kEventWarps * events, smem_bytes,
+  deepsets_kernel<<<grid, 32 * kEventWarps * events,
+                    s.pack_bytes + events * kEventWarps * s.warp_bytes,
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const unsigned char*>(pack),
-      static_cast<int8_t*>(out), s);
+      static_cast<const int8_t*>(x), p.pack, static_cast<int8_t*>(out), s);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int deepsets_plan_free(void* plan) {
+  delete static_cast<DeepsetsPlan*>(plan);
+  return static_cast<int>(cudaSuccess);
 }

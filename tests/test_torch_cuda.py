@@ -619,6 +619,160 @@ def test_prepare_packs_cuda_models_once(dev):
     assert tcm.packed_mma_chain(q) is pc
 
 
+JSC_M = [16, 64, 32, 32, 32, 5]
+
+
+@pytest.mark.parametrize("rows", [0, 1, 31, 32, 33, 64000])
+def test_cascade_mlp_plan_equals_plain(dev, rows):
+    """K2 through its launch plan, built by ``prepare``, at jsc-m's widths:
+    a call builds nothing and equals the plain version."""
+    rng = np.random.default_rng(20 + rows)
+    q = _qmlp(rng, JSC_M).to(dev)
+    tcm.prepare(q)
+    built = _build.plans.get("cascade_mlp")
+    x = _int8(rng, (rows, 16), dev)
+    out = tcm.cascade_mlp(x, q)
+    assert out.shape == (rows, 5)
+    assert torch.equal(out, tcm.cascade_mlp_ref(x, q))
+    assert _build.plans.get("cascade_mlp") == built
+
+
+@pytest.mark.parametrize("m", [1, 5, 32, 33])
+def test_deepsets_plan_equals_plain(dev, m):
+    """K3 through one launch plan for every batch (0, 1, 2, 3, 1000) and the
+    2-D single-set form, at deepsets-32's widths."""
+    rng = np.random.default_rng(30 + m)
+    phi, rho = _deepsets(rng, 21, [32, 32, 32], [32, 10])
+    phi, rho = phi.to(dev), rho.to(dev)
+    mp = 1 << (m - 1).bit_length()
+    built = _build.plans.get("deepsets")
+    for batch in (0, 1, 2, 3, 1000):
+        x = _int8(rng, (batch, m, 21), dev, -40, 40)
+        out = tcm.deepsets(x, phi, rho)
+        assert out.shape == (batch, 1, 10)
+        want = tcm.deepsets_ref(F.pad(x, (0, 0, 0, mp - m)), phi, rho)
+        assert torch.equal(out, want)
+    one = tcm.deepsets(x[7], phi, rho)
+    assert one.shape == (1, 10) and torch.equal(one, want[7])
+    assert _build.plans.get("deepsets") == built + 1
+
+
+def test_one_plan_a_model_and_one_a_pair(dev):
+    """100 calls of a model build one K2 plan; a phi with its rho one K3
+    plan, and with a new rho a second."""
+    rng = np.random.default_rng(40)
+    q = _qmlp(rng, JSC_M).to(dev)
+    phi, rho = _deepsets(rng, 21, [32, 32, 32], [32, 10])
+    phi, rho = phi.to(dev), rho.to(dev)
+    _, rho2 = _deepsets(rng, 21, [32, 32, 32], [32, 10])
+    rho2 = rho2.to(dev)
+    x2, x3 = _int8(rng, (100, 16), dev), _int8(rng, (4, 32, 21), dev, -40, 40)
+    before = _build.plans.snapshot()
+    for _ in range(100):
+        tcm.cascade_mlp(x2, q)
+        tcm.deepsets(x3, phi, rho)
+    after = _build.plans.snapshot()
+    assert after.get("cascade_mlp", 0) == before.get("cascade_mlp", 0) + 1
+    assert after.get("deepsets", 0) == before.get("deepsets", 0) + 1
+    assert torch.equal(tcm.deepsets(x3, phi, rho2),
+                       tcm.deepsets_ref(x3, phi, rho2))
+    assert _build.plans.get("deepsets") == after.get("deepsets", 0) + 1
+    assert tcm.ops._k3_plans[phi].rho() is rho2
+
+
+def test_threads_racing_to_a_models_first_call_build_one_plan(dev):
+    """16 threads make a fresh model's first call at once, with the
+    interpreter switching threads as often as it can: one K2 plan and one
+    K3 plan are built, and every output equals the plain version."""
+    import sys
+    import threading
+    rng = np.random.default_rng(43)
+    q = _qmlp(rng, JSC_M).to(dev)
+    phi, rho = _deepsets(rng, 21, [32, 32, 32], [32, 10])
+    phi, rho = phi.to(dev), rho.to(dev)
+    x2, x3 = _int8(rng, (64, 16), dev), _int8(rng, (8, 32, 21), dev, -40, 40)
+    want2, want3 = tcm.cascade_mlp_ref(x2, q), tcm.deepsets_ref(x3, phi, rho)
+    before = _build.plans.snapshot()
+    start, outs = threading.Barrier(16), []
+
+    def call():
+        start.wait(30)
+        s = torch.cuda.Stream(dev)
+        with torch.cuda.stream(s):
+            got = (tcm.cascade_mlp(x2, q), tcm.deepsets(x3, phi, rho))
+        s.synchronize()
+        outs.append(got)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=call) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and len(outs) == 16
+    after = _build.plans.snapshot()
+    for kernel in ("cascade_mlp", "deepsets"):
+        assert after.get(kernel, 0) == before.get(kernel, 0) + 1
+    for out2, out3 in outs:
+        assert torch.equal(out2, want2) and torch.equal(out3, want3)
+
+
+def test_a_plans_handle_is_freed_with_its_model(dev):
+    import gc
+    rng = np.random.default_rng(41)
+    q = _qmlp(rng, JSC_M).to(dev)
+    phi, rho = _deepsets(rng, 21, [32, 32, 32], [32, 10])
+    phi, rho = phi.to(dev), rho.to(dev)
+    tcm.cascade_mlp(_int8(rng, (40, 16), dev), q)
+    tcm.deepsets(_int8(rng, (2, 32, 21), dev, -40, 40), phi, rho)
+    freed = [tcm.ops._k2_plans[q].freed, tcm.ops._k3_plans[phi].freed]
+    assert all(f.alive for f in freed)
+    del q, phi
+    gc.collect()
+    assert not any(f.alive for f in freed)
+
+
+def test_a_plan_launches_on_the_callers_stream(dev, monkeypatch):
+    """The plan holds no stream: a launch under ``torch.cuda.stream(s)``
+    and one from another thread run on that thread's current stream."""
+    import threading
+    raw = _build.stream_of
+    seen = _recording_stream_of(monkeypatch)
+    rng = np.random.default_rng(42)
+    q = _qmlp(rng, JSC_M).to(dev)
+    phi, rho = _deepsets(rng, 21, [32, 32, 32], [32, 10])
+    phi, rho = phi.to(dev), rho.to(dev)
+    x2, x3 = _int8(rng, (500, 16), dev), _int8(rng, (30, 32, 21), dev, -40, 40)
+    want2, want3 = tcm.cascade_mlp_ref(x2, q), tcm.deepsets_ref(x3, phi, rho)
+    tcm.cascade_mlp(x2, q)
+    tcm.deepsets(x3, phi, rho)
+    assert {h for _, h in seen} == {torch.cuda.current_stream(dev).cuda_stream}
+    got = {}
+
+    def on(stream, key):
+        with torch.cuda.stream(stream):
+            assert raw(x2) == stream.cuda_stream
+            got[key] = (tcm.cascade_mlp(x2, q), tcm.deepsets(x3, phi, rho))
+        stream.synchronize()
+
+    s1, s2 = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    seen.clear()
+    on(s1, "here")
+    t = threading.Thread(target=on, args=(s2, "thread"))
+    t.start()
+    t.join(60)
+    assert not t.is_alive()
+    assert [h for _, h in seen] == [s1.cuda_stream] * 2 + [s2.cuda_stream] * 2
+    assert seen[-1][0] == t.ident
+    assert set(got) == {"here", "thread"}
+    for out2, out3 in got.values():
+        assert torch.equal(out2, want2) and torch.equal(out3, want3)
+
+
 def _recording_stream_of(monkeypatch):
     """Records the stream handle of every kernel launch and the thread
     that made it."""

@@ -17,6 +17,7 @@ from repro import quant as jq
 from repro.kernels import cascade_mlp as jcm
 from repro.kernels import mm_int8 as jmm
 from repro_torch.kernels import _build, cascade_mlp as tcm, mm_int8 as tmm
+from repro_torch import quant as tquant
 from repro_torch.quant import QuantizedMLP
 
 
@@ -261,12 +262,13 @@ def test_packed_mma_chain_holds_every_layer(dims, no_bias):
 
 def test_deepsets_pack_holds_both_chains():
     """K3's one contiguous copy: phi's and rho's packed weights and biases,
-    then each chain's layer records padded to 16 bytes, built once per
-    (phi, rho) pair and again for another rho."""
+    then each chain's layer records padded to 16 bytes; another rho gives
+    another pack. (K3's launch plan holds it, once per (phi, rho) pair:
+    ``tests/test_torch_cuda.py``.)"""
     rng = np.random.default_rng(3)
     _, _, tphi, trho = _deepsets_models(rng, 21, [32, 20, 32], [32, 10], 16)
     pack = tcm.ops._deepsets_pack(tphi, trho)
-    assert tcm.ops._deepsets_pack(tphi, trho) is pack
+    assert torch.equal(tcm.ops._deepsets_pack(tphi, trho), pack)
     assert pack.dtype == torch.uint8 and pack.numel() % 16 == 0
     pp, pr = tcm.packed_mma_chain(tphi), tcm.packed_mma_chain(trho)
     parts = [pp.w.view(torch.uint8), pr.w.view(torch.uint8),
@@ -283,7 +285,86 @@ def test_deepsets_pack_holds_both_chains():
         off += 4 * ints
     assert off == pack.numel()
     _, _, _, other = _deepsets_models(rng, 21, [32], [32, 10], 16)
-    assert tcm.ops._deepsets_pack(tphi, other) is not pack
+    other_pack = tcm.ops._deepsets_pack(tphi, other)
+    assert other_pack.numel() != pack.numel() or \
+        not torch.equal(other_pack, pack)
+
+
+# -- the launch plans' model-only ints ----------------------------------------
+
+def _port_chain(dims, relu_last=False, seed=0):
+    """A CPU-packed chain of the port's own PTQ."""
+    rng = np.random.default_rng(seed)
+    ws = [rng.normal(0, 0.4, (dims[i], dims[i + 1]))
+          for i in range(len(dims) - 1)]
+    bs = [rng.normal(0, 0.1, (d,)) for d in dims[1:]]
+    return tquant.quantize_mlp(ws, bs, [True] * (len(ws) - 1) + [relu_last],
+                               rng.normal(0, 1, (8, dims[0])))
+
+
+def _per_call_k3(pp, pr, f, fixed, batch):
+    """K3's shared-memory arithmetic as its wrapper did it on every call
+    before the launch plan: (stride, xraw, per_warp, events, smem)."""
+    stride = max(pp.stride, pr.stride)
+    xraw = -(-(16 * f + 36) // 16) * 16
+    per_warp = 2 * 16 * stride + 2 * xraw + 4 * (-(-pp.widths[-1] // 8) * 8)
+    events = min(2, max(batch, 1),
+                 (_build.MAX_SMEM_BYTES - fixed) // (2 * per_warp))
+    return stride, xraw, per_warp, events, fixed + events * 2 * per_warp
+
+
+@pytest.mark.parametrize("dims,stride,smem", [
+    ([16, 64, 32, 32, 32, 5], 80, 14880),        # jsc-m, the benchmark's K2
+    ([1792, 64], 1808, 231680)])                  # the widest one-layer chain
+def test_k2_plan_ints_are_the_per_call_formulas(dims, stride, smem):
+    """The stride and shared memory a K2 plan holds equal what the wrapper
+    computed on every call before (the packed bytes and each of the block's
+    two warps' two 16-row buffers), for jsc-m and for the widest one-layer
+    chain ``_check_smem`` admits (K 32 wider is refused)."""
+    pc = tcm.packed_mma_chain(_port_chain(dims))
+    assert pc.stride == stride
+    assert tcm.ops._cascade_smem(pc) == smem
+    assert smem == pc.smem_bytes + 2 * tcm.ops.BLOCK_ROWS * pc.stride
+    tcm.ops._check_smem(smem)
+    if len(dims) == 2:
+        wider = tcm.packed_mma_chain(_port_chain([dims[0] + 32, dims[1]]))
+        with pytest.raises(ValueError, match="cannot be fused"):
+            tcm.ops._check_smem(tcm.ops._cascade_smem(wider))
+
+
+@pytest.mark.parametrize("phi_dims,rho_dims,want", [
+    ([21, 32, 32, 32], [32, 32, 10], (48, 384, 2432, 7696, 2, 17424)),
+    ([21, 1536, 32], [32, 10], (1552, 384, 50560, 130624, 1, 231744))],
+    ids=["deepsets-32", "one-event-a-block"])
+def test_k3_plan_ints_are_the_per_call_formulas(phi_dims, rho_dims, want):
+    """The stride, x staging, per-warp bytes, event cap and shared memory a
+    K3 plan holds equal the per-call arithmetic of the wrapper before the
+    plan, at every batch: for deepsets-32 (the benchmark's K3) and a pair
+    whose block holds one event."""
+    phi = _port_chain(phi_dims, relu_last=True)
+    rho = _port_chain(rho_dims, seed=1)
+    pp, pr = tcm.packed_mma_chain(phi), tcm.packed_mma_chain(rho)
+    pack = tcm.ops._deepsets_pack(phi, rho)
+    lay = tcm.ops._deepsets_layout(pp, pr, pack.numel())
+    stride, xraw, per_warp, pack_bytes, events, smem = want
+    assert (lay.stride, lay.xraw, lay.per_warp, lay.pack_bytes, lay.events) \
+        == (stride, xraw, per_warp, pack_bytes, events)
+    for batch in (1, 2, 3, 1000):
+        ev = min(lay.events, batch)                 # what the C side takes
+        ev_smem = lay.pack_bytes + ev * tcm.ops.EVENT_WARPS * lay.per_warp
+        assert (lay.stride, lay.xraw, lay.per_warp, ev, ev_smem) \
+            == _per_call_k3(pp, pr, phi_dims[0], pack.numel(), batch)
+        if batch >= 2:
+            assert ev_smem == smem
+
+
+def test_k3_plan_refuses_a_pair_above_one_block():
+    phi = _port_chain([21, 1568, 32], relu_last=True)
+    rho = _port_chain([32, 10], seed=1)
+    pp, pr = tcm.packed_mma_chain(phi), tcm.packed_mma_chain(rho)
+    with pytest.raises(ValueError, match="cannot be fused"):
+        tcm.ops._deepsets_layout(pp, pr,
+                                 tcm.ops._deepsets_pack(phi, rho).numel())
 
 
 def test_fusion_legality_rejects_an_oversized_chain():

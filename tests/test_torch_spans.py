@@ -219,3 +219,62 @@ def test_a_build_by_nvcc_says_so_on_stderr(monkeypatch, tmp_path, capsys):
 def test_the_fast_range_is_used_where_torch_has_it():
     fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
     assert _build._Range is (fast or torch.autograd.profiler.record_function)
+
+
+def _bad_calls():
+    """Calls the CPU path refuses, each with the start of its message."""
+    rng = np.random.default_rng(9)
+    q = _qmlp(rng, [16, 8, 5])
+    phi = _qmlp(rng, [21, 8], relu_last=True)
+    rho, wide_rho = _qmlp(rng, [8, 5]), _qmlp(rng, [9, 5])
+    x16, x21 = _int8(rng, (4, 16)), _int8(rng, (3, 5, 21), -40, 40)
+    meta = torch.empty((4, 16), dtype=torch.int8, device="meta")
+    return {
+        "k2-float": (lambda: tcm.cascade_mlp(x16.float(), q),
+                     r"x must be int8 with \(2,\) dims"),
+        "k2-3d": (lambda: tcm.cascade_mlp(x16[None], q),
+                  r"x must be int8 with \(2,\) dims"),
+        "k2-width": (lambda: tcm.cascade_mlp(x16[:, :15], q),
+                     "x has 15 features, the model takes 16"),
+        "k2-meta": (lambda: tcm.cascade_mlp(meta, q),
+                    "tensors on different devices"),
+        "k3-agg": (lambda: tcm.deepsets(x21, phi, rho, agg="max"),
+                   "agg must be 'mean' or 'sum'"),
+        "k3-float": (lambda: tcm.deepsets(x21.float(), phi, rho),
+                     r"x must be int8 with \(2, 3\) dims"),
+        "k3-width": (lambda: tcm.deepsets(x21[..., :20].contiguous(), phi,
+                                          rho),
+                     "x has 20 features, the model takes 21"),
+        "k3-rho": (lambda: tcm.deepsets(x21, phi, wide_rho),
+                   "rho's input width differs from phi's output width"),
+        "k3-empty-set": (lambda: tcm.deepsets(x21[:, :0], phi, rho),
+                         "deepsets needs at least one set element"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_calls()))
+def test_the_cpu_path_raises_as_before_and_records_its_checks(case):
+    """With the launch plans the CPU path is unchanged: each refused call
+    raises its ValueError, in the checks phase alone."""
+    call, message = _bad_calls()[case]
+    before = _build.spans.totals()
+    plans = _build.plans.snapshot()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(ValueError, match=message):
+            call()
+    after = _build.spans.totals()
+    assert {k for k in after if after[k] != before.get(k)} == {
+        "repro_torch.checks"}
+    assert after["repro_torch.checks"][0] == \
+        before.get("repro_torch.checks", (0, 0))[0] + 1
+    assert _build.plans.snapshot() == plans
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+def test_a_cpu_call_builds_no_plan(wrapper):
+    call = _call(wrapper)
+    plans = _build.plans.snapshot()
+    for _ in range(3):
+        call()
+    assert _build.plans.snapshot() == plans
+    assert not tcm.ops._k2_plans and not tcm.ops._k3_plans
