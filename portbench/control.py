@@ -1,7 +1,10 @@
 """Reads the comparison's numbers at a cell's own size on many seeds, in one
-process: the program's, and its control's, the plain reference in the
-program's place computed on the 4-bit grid (``reference.int8``, ``bits=4``),
-which the comparison has to reject. The benchmark's own runs never run it.
+process: the program's, and its control's, which the comparison has to
+reject: the plain reference in the program's place, computed in the
+nearest precision below the configuration's. That is the reference's own
+``lower_precision(cfg, model)`` where its kind defines one (a float kind),
+and the 4-bit grid (``reference.int8``, ``bits=4``) otherwise. The
+benchmark's own runs never run it.
 
     python3 portbench/control.py --workload <cell> --seconds 2 \
         --seeds 11 12 ... --control-seeds 21 22 23
@@ -28,8 +31,11 @@ from portbench import run, spec  # noqa: E402
 
 
 def lower_precision(cfg, model):
-    """The reference at 4 bits, as the window drives the program."""
+    """The reference in the lower precision, as the window drives the
+    program: its kind's own ``lower_precision``, or at 4 bits."""
     ref = spec.reference(cfg["kind"])
+    if hasattr(ref, "lower_precision"):
+        return ref.lower_precision(cfg, model)
     return lambda x: ref.forward(cfg, model, x, bits=4)
 
 

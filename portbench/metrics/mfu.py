@@ -1,7 +1,8 @@
-"""The whole step's share of the card's int8 peak, in %: the operations the
+"""The whole step's share of the card's peak, in %: the operations the
 algorithm needs for every event completed in the window (``ops_per_event``
 of the configuration's reference, at the published widths), over the
-window's length times the data-sheet peak (``roofline.PEAKS``)."""
+window's length times the data-sheet peak at the configuration's precision
+(``roofline.PEAKS``; int8 where the configuration names no ``"peak"``)."""
 
 
 def read(run):

@@ -4,23 +4,34 @@ from __future__ import annotations
 
 from typing import Optional
 
-# name as torch.cuda.get_device_name() gives it -> (int8 ops/s, HBM bytes/s)
+# name as torch.cuda.get_device_name() gives it -> operations a second by
+# the precision of the operands, and HBM bytes a second. H100 SXM5: the
+# dense tensor-core rates (the data sheet's figures with sparsity, halved).
 PEAKS = {
-    "NVIDIA H100 80GB HBM3": (1979e12, 3.35e12),       # H100 SXM5
+    "NVIDIA H100 80GB HBM3": {
+        "ops": {"int8": 1979e12, "bf16": 989.4e12},
+        "bytes": 3.35e12},
 }
 
 
-def peaks(device_name: str):
-    """(int8 ops/s, bytes/s) of the named card; raises for a card whose
-    peaks are not in the table, since no share could be stated."""
+def peaks(device_name: str, precision: str):
+    """(operations a second at ``precision``, bytes a second) of the named
+    card; raises for a card or a precision whose peak is not in the table,
+    since no share could be stated."""
     try:
-        return PEAKS[device_name]
+        card = PEAKS[device_name]
     except KeyError:
         raise ValueError(f"no data-sheet peaks for {device_name!r}") from None
+    try:
+        return card["ops"][precision], card["bytes"]
+    except KeyError:
+        raise ValueError(f"no data-sheet {precision!r} peak for "
+                         f"{device_name!r}") from None
 
 
 def bound_s(ops: float, nbytes: float, peak) -> float:
-    """max(operations / int8 peak, bytes / HBM bandwidth), in seconds."""
+    """max(operations / the precision's peak, bytes / HBM bandwidth), in
+    seconds, ``peak`` as ``peaks`` gives it."""
     return max(ops / peak[0], nbytes / peak[1])
 
 

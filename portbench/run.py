@@ -11,7 +11,9 @@ the cell's traffic (``loops/<loop>.py``). With ``--trace 1`` a further stretch o
 the same traffic runs under ``torch.profiler`` and the per-layer metrics
 are reported instead of the end-to-end ones. Last, a sample of the window's
 outputs, drawn from the seed, is compared with the plain reference
-(``reference/``): ``correct`` holds where every score is equal.
+(``reference/``), TF32 off for the reference alone: ``correct`` holds where
+every score is equal, or, for a configuration that states a ``"compare"``
+rule, within its tolerance (``compare.py``).
 
 The last line of standard output is one JSON object; the numbers compared
 are the last lines of standard error. Exits non-zero, printing no result,
@@ -46,7 +48,7 @@ from typing import Callable, Optional  # noqa: E402
 
 import torch  # noqa: E402
 
-from portbench import devtrace, roofline, spec, window  # noqa: E402
+from portbench import compare, devtrace, roofline, spec, window  # noqa: E402
 
 BANNED = ("jax", "jaxlib", "flax", "repro")
 
@@ -68,7 +70,8 @@ class Run:
     traffic: dict
     ref: ModuleType                 # reference/<kind>.py
     batch_events: int
-    peak: tuple                     # (int8 ops/s, bytes/s) of the card
+    peak: tuple                     # (ops/s at the config's precision,
+                                    #  bytes/s) of the card
     setup_s: float = 0.0
     window: window.Window = None
     launches: Optional[int] = None  # the port's launches in the window
@@ -80,19 +83,25 @@ def _launch_total() -> int:
     return sum(launches.snapshot().values())
 
 
-def compare(ref, cfg, model, pool, sample: window.Sample, dev):
-    """(scores that differ from the reference's, scores compared) over the
-    sampled calls; the reference runs once for each pool batch sampled."""
+def _sampled_pairs(ref, cfg, model, pool, sample: window.Sample):
+    """(output, the reference's) for each sampled call; the reference runs
+    once for each pool batch sampled."""
     by_batch = defaultdict(list)
     for p, out in sample.kept:
         by_batch[p].append(out)
-    differ = compared = 0
     for p, outs in sorted(by_batch.items()):
         want = ref.forward(cfg, model, pool[p])
         for out in outs:
-            differ += int((out.to(dev) != want).sum())
-            compared += want.numel()
-    return differ, compared
+            yield out, want
+
+
+def check(ref, cfg, model, pool, sample: window.Sample) -> dict:
+    """The checks over the sampled calls (``compare.checks``, by the
+    configuration's ``"compare"`` rule, exact without one), the reference
+    computed with TF32 off."""
+    with compare.no_tf32():
+        return compare.checks(_sampled_pairs(ref, cfg, model, pool, sample),
+                              cfg.get("compare"))
 
 
 def card_line() -> str:
@@ -123,7 +132,8 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(dev)
     run = Run(config=cfg, traffic=traffic, ref=ref,
-              batch_events=traffic["batch_events"], peak=roofline.peaks(name))
+              batch_events=traffic["batch_events"],
+              peak=roofline.peaks(name, cfg.get("peak", "int8")))
 
     # Set-up: the model and the pool, the port, a warm-up of the cell's
     # shapes.
@@ -167,14 +177,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
     del fn
     gc.unfreeze()
     gc.collect()
-    differ, compared = compare(ref, cfg, model, pool, sample, dev)
-    checks = {
-        "mismatched_scores": {"value": differ, "limit": 0,
-                              "holds_if": "value <= limit"},
-        "scores_compared": {"value": compared, "limit": 1,
-                            "holds_if": "value >= limit"},
-    }
-    correct = differ == 0 and compared >= 1
+    checks = check(ref, cfg, model, pool, sample)
 
     metrics = (spec.per_layer(bench, cell_name) if trace
                else spec.end_to_end(bench, cell_name))
@@ -186,7 +189,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
         if v is not None:
             values[m["name"]] = {"value": v, "unit": m["unit"]}
     result = {
-        "correct": correct,
+        "correct": compare.correct(checks),
         "attempted": run.window.issued * run.batch_events,
         "failed": 0,
         "metrics": values,

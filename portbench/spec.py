@@ -6,6 +6,9 @@ cells and metrics. Each has files of its own under ``portbench/``:
 * a configuration ``<name>``: ``configs/<name>.json`` (its sizes), run by
   ``reference/<kind>.py`` (its plain reference, operations and bytes) and
   ``port/<kind>.py`` (how the port is called), ``kind`` named in the file;
+  the file may state how its outputs are compared (``"compare"``, see
+  ``compare.py``) and the precision whose peak its shares divide by
+  (``"peak"``, see ``roofline.py``);
 * a traffic mix ``<name>``: ``traffic/<name>.json``, parameters read by the
   loop it names, ``loops/<loop>.py`` (``window.py`` lists what every loop
   reads);
@@ -21,6 +24,8 @@ import re
 from pathlib import Path
 from types import ModuleType
 from typing import List
+
+from portbench import compare
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -44,8 +49,15 @@ def _data(folder: str, name: str) -> dict:
         return json.load(f)
 
 
+def check_config(cfg: dict) -> dict:
+    """``cfg``, or ValueError where its ``"compare"`` block is malformed."""
+    if "compare" in cfg:
+        compare.check_rule(cfg["compare"])
+    return cfg
+
+
 def config(name: str) -> dict:
-    return _data("configs", name)
+    return check_config(_data("configs", name))
 
 
 def traffic(name: str) -> dict:

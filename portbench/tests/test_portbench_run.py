@@ -118,7 +118,7 @@ def _hand_built_run(kind="deepsets", trace=None):
                       call_s=0.004)
     return run.Run(config=cfg, traffic={}, ref=spec.reference(kind),
                    batch_events=1000,
-                   peak=roofline.peaks("NVIDIA H100 80GB HBM3"),
+                   peak=roofline.peaks("NVIDIA H100 80GB HBM3", "int8"),
                    setup_s=7.5, window=w, launches=100, trace=trace)
 
 
