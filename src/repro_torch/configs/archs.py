@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from . import deepseek_v2_lite
 from .base import ArchConfig, MLAParams
 
 
@@ -195,12 +196,18 @@ FULL = {
 }
 
 
+#: Architectures outside the JAX package's zoo (so outside ``FULL`` and
+#: ``ARCH_NAMES``, which mirror it): name -> (full, reduced).
+MORE = {deepseek_v2_lite.ARCH: (deepseek_v2_lite.config,
+                                deepseek_v2_lite.reduced)}
+
+
 def get(name: str) -> ArchConfig:
-    return FULL[name]()
+    return MORE[name][0]() if name in MORE else FULL[name]()
 
 
 def get_reduced(name: str) -> ArchConfig:
-    return _reduce(FULL[name]())
+    return MORE[name][1]() if name in MORE else _reduce(FULL[name]())
 
 
 ARCH_NAMES = tuple(FULL.keys())

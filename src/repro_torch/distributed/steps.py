@@ -42,6 +42,7 @@ from repro_torch import optim, resolve_device
 from repro_torch._tree import leaves, tree_map, unflatten
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.data import place
+from repro_torch.kernels._build import spans
 from repro_torch.launch.mesh import NamedSharding, P, axis_names, axis_sizes
 from . import shardctx
 from .planner import PlanConfig, shard_tensor
@@ -101,8 +102,11 @@ def _vocab_parallel_terms(logits, labels):
     return lse, gold
 
 
-def _forward(cfg: ArchConfig, model, batch: Batch, constrain=None):
+def _forward(cfg: ArchConfig, model, batch: Batch, constrain=None,
+             last: bool = False):
     kw = {} if constrain is None else {"constrain": constrain}
+    if last:
+        kw["last"] = True
     if cfg.enc_layers:
         return model(batch["tokens"], batch["frames"])
     if cfg.frontend == "vision_stub":
@@ -297,24 +301,33 @@ def make_train_step(cfg: ArchConfig, ocfg: optim.AdamWConfig, *,
 
 def make_prefill(cfg: ArchConfig, *, mesh=None,
                  plan: PlanConfig = PlanConfig(), seq_shard: bool = True,
-                 device="cuda") -> Callable:
+                 device="cuda", last_only: bool = False) -> Callable:
     """(model, batch) -> logits: the full-sequence forward (inference
     prefill) under ``torch.inference_mode()``, so its attention is K5. With
     ``mesh`` the logits are a DTensor on it (``full_tensor()`` gathers
     them), and the forward runs under ``torch.no_grad()`` instead: a
     DTensor weight sliced in inference mode (whisper's ``dec_pos``) fails
-    on its version counter."""
+    on its version counter. ``last_only`` (a decoder-only ``Transformer``):
+    the logits of the last position alone, (B, 1, V), the final norm and
+    the head run on that position only, as a serving prefill samples its
+    first token there. A profiler that records sees each call as span
+    ``repro_torch.prefill``."""
     dev = resolve_device(device)
     constrain = _make_constrain(cfg, mesh, plan, seq_shard)
+    if last_only and cfg.enc_layers:
+        raise ValueError("last_only takes a decoder-only model")
 
     def prefill(model, batch):
+        span = spans.begin("repro_torch.prefill")
         batch = place(batch, dev)
         if mesh is not None:
             batch = _on_mesh(batch, mesh, plan)
         grad_off = (torch.inference_mode() if mesh is None
                     else torch.no_grad())
         with grad_off, _mesh_context(mesh, plan):
-            logits, _ = _forward(cfg, model, batch, constrain)
+            logits, _ = _forward(cfg, model, batch, constrain, last_only)
+        if span is not None:
+            span.end()
         return logits
 
     return prefill

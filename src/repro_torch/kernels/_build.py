@@ -15,12 +15,15 @@ that launches nothing, a CUDA error code);
 launches its wrapper made, and ``plans`` the launch plans the K2/K3 wrappers
 built. ``spans`` times the K2/K3 wrappers from inside,
 in phases, only while a ``torch.profiler`` records, and the library's first
-load (``repro_torch.library``) always; ``repro_torch.obs.tracing`` re-exports
-it. A build by nvcc writes one line on stderr, so a process that compiled
+load (``repro_torch.library``) always; the LM path records its prefill, MLA
+and MoE spans and the MoE's counters there under the same gate, the host's
+waits on the card counted by :func:`host_syncs`;
+``repro_torch.obs.tracing`` re-exports it. A build by nvcc writes one line on stderr, so a process that compiled
 says so.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,6 +33,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -150,11 +154,15 @@ class CallSpan:
 class HotSpans:
     """Count and host nanoseconds by span name, for spans on the port's hot
     path. :meth:`begin` returns None unless a profiler records; a span kept
-    whatever runs (a once-a-process set-up) goes to :meth:`add`."""
+    whatever runs (a once-a-process set-up) goes to :meth:`add`. Beside the
+    spans, counters (:meth:`count`): how many values were added under a
+    name, and their sum; a caller counts only where its :meth:`begin` gave
+    a span, so that nothing is counted with no profiler."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._totals: Dict[str, List[int]] = {}
+        self._counts: Dict[str, List[float]] = {}
 
     def begin(self, phase: str) -> Optional[CallSpan]:
         """A wrapper's call, its first phase ``phase`` open, or None where no
@@ -184,9 +192,56 @@ class HotSpans:
         n, ns = self.totals().get(name, (0, 0))
         return ns / n * 1e-3 if n else None
 
+    def count(self, name: str, value: float = 1) -> None:
+        with self._lock:
+            c = self._counts.setdefault(name, [0, 0])
+            c[0] += 1
+            c[1] += value
 
-#: The port's one recorder: ``cascade_mlp/ops.py`` (K2, K3) and
-#: :func:`library` record into it.
+    def counts(self) -> Dict[str, Tuple[int, float]]:
+        """name -> (values added, their sum)."""
+        with self._lock:
+            return {k: (n, v) for k, (n, v) in self._counts.items()}
+
+
+#: What torch's sync debug mode warns at each call that makes the host wait
+#: on a CUDA device (``c10::cuda::warn_or_error_on_sync``).
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+@contextlib.contextmanager
+def host_syncs(device: torch.device):
+    """Counts the times the host waits on ``device`` while entered (a copy
+    to the host, ``.item()``, ``.tolist()``, ``nonzero``, a ``bincount``
+    that sizes its output...): yields a one-entry list that holds the count
+    on exit. On a CUDA device torch's sync debug mode is set to warn, and
+    its warnings are counted instead of shown (others are shown as they
+    came); the mode is restored on exit. On another device nothing waits,
+    and the count is 0. Costs a mode switch and a warnings filter: a traced
+    call's."""
+    box = [0]
+    if device.type != "cuda":
+        yield box
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield box
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    for w in caught:
+        if SYNC_WARNING in str(w.message):
+            box[0] += 1
+        else:
+            warnings.warn_explicit(w.message, w.category, w.filename,
+                                   w.lineno)
+
+
+#: The port's one recorder: ``cascade_mlp/ops.py`` (K2, K3), :func:`library`,
+#: ``steps.make_prefill``, ``models.attention`` (MLA) and ``models.moe``
+#: record into it.
 spans = HotSpans()
 
 _lock = threading.Lock()

@@ -108,7 +108,7 @@ def _fake_mode(mode):
             setattr(cls, "local_shard_size_and_offset", orig)
 
 
-def _full_capacity(r, x, cfg):
+def _full_capacity(r, x, cfg, span=None):
     """``moe.dispatch`` for fake tensors, which hold no routing to count:
     every expert takes its full queue, C slots a group, as the reference's
     static (E, G, C) dispatch computes them all."""

@@ -3,7 +3,8 @@
 One parameterized implementation covers MHA/GQA (n_kv <= n_heads), optional
 QKV bias (qwen1.5), optional qk-norm (qwen3), a sliding window (mixtral),
 RoPE / M-RoPE (qwen2-vl), and KV-cache decode with a bf16 or int8 cache (a
-ring buffer for a window). MLA (minicpm3) is a separate path, as in the
+ring buffer for a window). MLA (minicpm3; DeepSeek-V2, outside the JAX
+package's zoo: no query LoRA, YaRN) is a separate path, as in the
 reference.
 
 A prefill that needs no gradient runs through the hand-written flash
@@ -34,14 +35,18 @@ Shapes: x (B, S, d); q/k/v (B, S, H, hd); cache K/V (B, S_max, n_kv, hd).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.configs.yarn import YaRN, yarn_mscale
 from repro_torch.distributed import shardctx
+from repro_torch.kernels._build import spans
 from repro_torch.kernels.flash_attn import flash_mha
-from .blocks import Params, apply_rope, dense, dense_init, rmsnorm, rmsnorm_init
+from .blocks import (Params, apply_rope, dense, dense_init, rmsnorm,
+                     rmsnorm_init, rope_freqs)
 
 NEG_INF = -1e30
 
@@ -412,24 +417,100 @@ def _decode_on_mesh(q, k, v, cache: KVCache, cfg: AttnConfig,
 
 @dataclasses.dataclass(frozen=True)
 class MLAConfig:
+    """MiniCPM3's MLA by default; DeepSeek-V2's with ``q_lora_rank=None``
+    (q = x·wq, no ``wq_a``/``q_norm``), ``yarn`` (YaRN's frequencies for the
+    rope columns, and its mscale² on the softmax scale) and
+    ``rope_interleaved`` (the published pairing: rope rotates columns
+    (2i, 2i+1) of a head's rope part, where ``blocks.apply_rope`` rotates
+    (i, i + rope/2); the rotated pairs come out in the half-split layout,
+    in q and k alike, so the scores are the published ones)."""
     d_model: int
     n_heads: int
-    q_lora_rank: int = 768
+    q_lora_rank: Optional[int] = 768
     kv_lora_rank: int = 256
     qk_nope_dim: int = 64      #: per-head non-positional dim
     qk_rope_dim: int = 32      #: per-head decoupled-RoPE dim
     v_head_dim: int = 64
     rope_theta: float = 10000.0
+    yarn: Optional[YaRN] = None
+    rope_interleaved: bool = False
+
+
+def mla_scale(cfg: MLAConfig) -> float:
+    """The softmax scale: 1/sqrt(qk_nope + qk_rope), times YaRN's
+    ``yarn_mscale(factor, mscale_all_dim)`` squared where it applies (the
+    published ``softmax_scale``)."""
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    y = cfg.yarn
+    if y is not None and y.mscale_all_dim:
+        scale *= yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return scale
+
+
+def yarn_freqs(dim: int, theta: float, y: YaRN) -> torch.Tensor:
+    """YaRN's inverse frequencies (dim/2,) f32, as the published
+    ``DeepseekV2YarnRotaryEmbedding``: index i keeps theta^(-2i/dim) below
+    the correction range [low, high] that ``beta_fast`` and ``beta_slow``
+    rotations over ``original_max_position`` give, takes it ÷ ``factor``
+    above it, and follows the linear ramp (i - low)/(high - low) between."""
+    def corr(rotations):
+        return (dim * math.log(y.original_max_position
+                               / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(corr(y.beta_fast)), 0)
+    high = min(math.ceil(corr(y.beta_slow)), dim - 1)
+    extra = rope_freqs(dim, theta)
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32) - low)
+            / (high - low if high > low else 0.001)).clamp(0, 1)
+    return extra / y.factor * ramp + extra * (1 - ramp)
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_rope_table(cfg: MLAConfig, device: torch.device):
+    """(inverse frequencies, cos/sin factor) of the config on ``device``:
+    computed once a config and device."""
+    y = cfg.yarn
+    if y is None:
+        return rope_freqs(cfg.qk_rope_dim, cfg.rope_theta, device), 1.0
+    return (yarn_freqs(cfg.qk_rope_dim, cfg.rope_theta, y).to(device),
+            yarn_mscale(y.factor, y.mscale)
+            / yarn_mscale(y.factor, y.mscale_all_dim))
+
+
+def mla_rope(x: torch.Tensor, positions: torch.Tensor,
+             cfg: MLAConfig) -> torch.Tensor:
+    """The rope of MLA's rope columns x (B, S, H, rope) at positions
+    (B, S): ``blocks.apply_rope`` without YaRN; with it, YaRN's frequencies
+    and cos/sin factor, and the published pairing where
+    ``rope_interleaved``."""
+    if cfg.yarn is None and not cfg.rope_interleaved:
+        return apply_rope(x, positions, theta=cfg.rope_theta)
+    freqs, m = _mla_rope_table(cfg, x.device)
+    ang = positions[..., None].float() * freqs
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    if m != 1.0:
+        cos, sin = cos * m, sin * m
+    xf = x.float()
+    if cfg.rope_interleaved:
+        x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    else:
+        x1, x2 = torch.chunk(xf, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
 
 
 def mla_init(gen, cfg: MLAConfig, dtype=torch.float32, device=None) -> Params:
     H = cfg.n_heads
     qk = cfg.qk_nope_dim + cfg.qk_rope_dim
     kw = dict(dtype=dtype, device=device)
+    if cfg.q_lora_rank is None:
+        q = {"wq": dense_init(gen, cfg.d_model, H * qk, **kw)}
+    else:
+        q = {"wq_a": dense_init(gen, cfg.d_model, cfg.q_lora_rank, **kw),
+             "q_norm": rmsnorm_init(cfg.q_lora_rank, device=device),
+             "wq_b": dense_init(gen, cfg.q_lora_rank, H * qk, **kw)}
     return {
-        "wq_a": dense_init(gen, cfg.d_model, cfg.q_lora_rank, **kw),
-        "q_norm": rmsnorm_init(cfg.q_lora_rank, device=device),
-        "wq_b": dense_init(gen, cfg.q_lora_rank, H * qk, **kw),
+        **q,
         "wkv_a": dense_init(gen, cfg.d_model,
                             cfg.kv_lora_rank + cfg.qk_rope_dim, **kw),
         "kv_norm": rmsnorm_init(cfg.kv_lora_rank, device=device),
@@ -443,11 +524,12 @@ def _mla_q(p: Params, x: torch.Tensor, cfg: MLAConfig,
            positions: torch.Tensor):
     """(q_nope, q_rope) (B, S, H, ·), RoPE applied to q_rope."""
     B, S, _ = x.shape
-    q = dense(p["wq_b"], rmsnorm(p["q_norm"], dense(p["wq_a"], x)))
+    q = (dense(p["wq"], x) if cfg.q_lora_rank is None else
+         dense(p["wq_b"], rmsnorm(p["q_norm"], dense(p["wq_a"], x))))
     q = shardctx.unflatten(q, 2, (cfg.n_heads,
                                   cfg.qk_nope_dim + cfg.qk_rope_dim))
     q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], -1)
-    return q_nope, apply_rope(q_rope, positions, theta=cfg.rope_theta)
+    return q_nope, mla_rope(q_rope, positions, cfg)
 
 
 def _mla_kv_a(p: Params, x: torch.Tensor, cfg: MLAConfig,
@@ -455,9 +537,7 @@ def _mla_kv_a(p: Params, x: torch.Tensor, cfg: MLAConfig,
     """The latent c_kv (B, S, r) and the shared rope key (B, S, 1, rope)."""
     kv_a = dense(p["wkv_a"], x)
     c_kv, k_rope = torch.split(kv_a, [cfg.kv_lora_rank, cfg.qk_rope_dim], -1)
-    k_rope = apply_rope(k_rope[:, :, None, :], positions,
-                        theta=cfg.rope_theta)
-    return c_kv, k_rope
+    return c_kv, mla_rope(k_rope[:, :, None, :], positions, cfg)
 
 
 def _mla_kv_b(p: Params, c_kv: torch.Tensor, cfg: MLAConfig):
@@ -532,15 +612,26 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: MLAConfig,
     kv_lora_rank) plus a shared rope key is all that decode needs to cache.
 
     The reference's score is q_nope . k_nope + q_rope . k_rope, scaled by
-    1/sqrt(qk_nope + qk_rope), in its dense branch and its chunked flash
-    scan alike (:357-411). That is one dot product over the concatenated
+    1/sqrt(qk_nope + qk_rope) (``mla_scale``: with YaRN's mscale² for
+    DeepSeek-V2), in its dense branch and its chunked flash scan alike
+    (:357-411). That is one dot product over the concatenated
     width, so without a gradient to carry the prefill is one K5 bf16 call,
     causal, on q = [q_nope | q_rope] and k = [k_nope | k_rope broadcast
     over the heads] (qk_nope + qk_rope wide), with v zero-padded to that
     width (the padded columns of the output are exact zeros, and are
     sliced off). With a gradient to carry (``needs_grad``), the
-    reference's dense or chunked branch runs under autograd.
+    reference's dense or chunked branch runs under autograd. A profiler
+    that records sees the call as span ``repro_torch.mla``.
     """
+    span = spans.begin("repro_torch.mla")
+    out = _mla_attention(p, x, cfg, positions)
+    if span is not None:
+        span.end()
+    return out
+
+
+def _mla_attention(p: Params, x: torch.Tensor, cfg: MLAConfig,
+                   positions: Optional[torch.Tensor]) -> torch.Tensor:
     B, S, _ = x.shape
     H = cfg.n_heads
     if positions is None:
@@ -549,7 +640,7 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: MLAConfig,
     c_kv, k_rope = _mla_kv_a(p, x, cfg, positions)
     k_nope, v = _mla_kv_b(p, c_kv, cfg)
     qk = cfg.qk_nope_dim + cfg.qk_rope_dim
-    scale = 1.0 / math.sqrt(qk)
+    scale = mla_scale(cfg)
     vd = cfg.v_head_dim
     if needs_grad(q_nope, q_rope, k_nope, k_rope, v):
         if S > DENSE_ATTN_MAX_SEQ:
@@ -623,7 +714,7 @@ def mla_decode_step(p: Params, x: torch.Tensor, cache: MLACache,
     cache.c_kv[:, slot] = c_new[:, 0].to(cache.c_kv.dtype)
     cache.k_rope[:, slot] = kr_new[:, 0, 0].to(cache.k_rope.dtype)
     k_nope, v = _mla_kv_b(p, cache.c_kv, cfg)
-    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    scale = mla_scale(cfg)
     logits = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
               + torch.einsum("bshd,btd->bhst", q_rope.float(),
                              cache.k_rope.float())) * scale
@@ -644,7 +735,7 @@ def _mla_decode_on_mesh(p: Params, q_nope, q_rope, c_new, kr_new,
     plain decode applies them to the whole cache. Returns (B, 1, H*vd) in
     the cache's dtype, on the rows."""
     B, H, vd = q_nope.shape[0], cfg.n_heads, cfg.v_head_dim
-    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    scale = mla_scale(cfg)
     length = cache.length
 
     def partial(ql, cl, kpos, pp):

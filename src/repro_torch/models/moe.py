@@ -9,6 +9,16 @@ in GShard's choice-major priority (the k-th choices of all tokens queue
 after the (k-1)-th, each in token order); a choice past capacity is dropped
 and contributes nothing.
 
+DeepSeek-V2 (``configs.deepseek_v2_lite``) adds, each behind a field of
+``MoEConfig`` whose default keeps the behaviour above: gates left as the
+softmax gives them (``renormalize=False``), no capacity (``dropless``:
+every choice is kept, as the published model infers), a shared expert of
+its own width (``shared_ff``), and a layer told which experts it holds
+(``held``, the chip's share under expert parallelism): it routes over all
+``n_experts``, runs only its held experts' SwiGLUs on the rows routed to
+them, and adds the shared expert once. What the absent experts would add
+is left out; nothing stands in for them or for their exchange.
+
 The reference dispatches and combines with (G, S, K, E, C) one-hot einsums
 (1.3 GB in f32 at mixtral's S = 8192, and some 2.7 TFLOP a layer). The same
 sums are taken here in index form: the kept (token, choice) pairs are
@@ -35,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import shardctx
+from repro_torch.kernels._build import CallSpan, host_syncs, spans
 from .blocks import Params, _init, swiglu, swiglu_init
 
 
@@ -46,6 +57,15 @@ class MoEConfig:
     top_k: int = 1
     capacity_factor: float = 1.25
     shared_expert: bool = False      #: llama4-style always-on expert
+    renormalize: bool = True         #: the top-k gates divided by their sum
+    dropless: bool = False           #: no capacity: every choice is kept
+    shared_ff: Optional[int] = None  #: the shared expert's width (d_ff)
+    #: (first, count) of the experts this layer holds; None: all of them
+    held: Optional[Tuple[int, int]] = None
+
+    @property
+    def held_range(self) -> Tuple[int, int]:
+        return self.held if self.held is not None else (0, self.n_experts)
 
 
 def _stacked(gen, shape, dtype, device) -> torch.Tensor:
@@ -62,17 +82,20 @@ def _stacked(gen, shape, dtype, device) -> torch.Tensor:
 
 
 def moe_init(gen, cfg: MoEConfig, dtype=torch.float32, device=None) -> Params:
+    """The router over all ``n_experts``, the stacks of the held ones."""
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    n = cfg.held_range[1]
     p = {
         # the router stays f32, as the reference's: a bf16 router would
         # change which experts top-k picks
         "router": _init(gen, (d, E), dtype=torch.float32, device=device),
-        "wg": _stacked(gen, (E, d, f), dtype, device),
-        "wu": _stacked(gen, (E, d, f), dtype, device),
-        "wd": _stacked(gen, (E, f, d), dtype, device),
+        "wg": _stacked(gen, (n, d, f), dtype, device),
+        "wu": _stacked(gen, (n, d, f), dtype, device),
+        "wd": _stacked(gen, (n, f, d), dtype, device),
     }
     if cfg.shared_expert:
-        p["shared"] = swiglu_init(gen, d, f, dtype=dtype, device=device)
+        p["shared"] = swiglu_init(gen, d, cfg.shared_ff or f, dtype=dtype,
+                                  device=device)
     return p
 
 
@@ -85,14 +108,16 @@ def _capacity(tokens_per_group: int, cfg: MoEConfig) -> int:
 class Routing(NamedTuple):
     """Where each (group, token, choice) goes; (G, S, K) but ``probs``."""
     probs: torch.Tensor       # (G, S, E) f32 router softmax
-    gates: torch.Tensor       # (G, S, K) f32, renormalized
+    gates: torch.Tensor       # (G, S, K) f32, renormalized unless not
     expert_ids: torch.Tensor  # (G, S, K) int64
-    slot: torch.Tensor        # (G, S, K) int64, place in the expert's queue
+    #: (G, S, K) int64, place in the expert's queue; None where dropless
+    slot: Optional[torch.Tensor]
     keep: torch.Tensor        # (G, S, K) bool, slot < capacity
     capacity: int
     #: the layer's layout on the mesh (``moe_forward``): "unsharded",
     #: "token-parallel", or "expert-parallel <mode>" (``shardctx.EP``)
     layout: str = "unsharded"
+    renormalized: bool = True  #: the gates divided by their sum
 
     @property
     def dropped(self) -> int:
@@ -107,8 +132,13 @@ def moe_route(p: Params, x: torch.Tensor, cfg: MoEConfig) -> Routing:
     logits = x.float() @ p["router"].float()                  # (G,S,E)
     probs = torch.softmax(logits, dim=-1)
     gates, expert_ids = torch.topk(probs, K, dim=-1)          # (G,S,K)
-    # renormalize the selected gates (mixtral convention)
-    gates = gates / gates.sum(dim=-1, keepdim=True)
+    if cfg.renormalize:
+        # renormalize the selected gates (mixtral convention)
+        gates = gates / gates.sum(dim=-1, keepdim=True)
+    if cfg.dropless:
+        return Routing(probs, gates, expert_ids, None,
+                       torch.ones_like(expert_ids, dtype=torch.bool), S * K,
+                       renormalized=cfg.renormalize)
     # choice-major: the k-th choices of all tokens queue after the
     # (k-1)-th; a choice's slot is the number of earlier entries of the
     # same expert in that order (the count runs along the last, contiguous
@@ -118,7 +148,8 @@ def moe_route(p: Params, x: torch.Tensor, cfg: MoEConfig) -> Routing:
     before = (onehot.cumsum(dim=2) - onehot).gather(1, ids_cm[:, None])
     slot = before[:, 0].reshape(G, K, S).transpose(1, 2)
     C = _capacity(S, cfg)
-    return Routing(probs, gates, expert_ids, slot, slot < C, C)
+    return Routing(probs, gates, expert_ids, slot, slot < C, C,
+                   renormalized=cfg.renormalize)
 
 
 # Set by ``routing_log`` while it is entered: called with each call's
@@ -130,10 +161,12 @@ def pinned(r: Routing, expert_ids: torch.Tensor,
            keep: torch.Tensor) -> Routing:
     """``r`` with the experts and kept choices another run of the same
     tokens chose: the gates are read from ``r``'s own probabilities at those
-    experts and renormalized, so only the choice is carried over."""
+    experts (and renormalized where ``r``'s were), so only the choice is
+    carried over."""
     gates = r.probs.gather(-1, expert_ids)
-    return r._replace(gates=gates / gates.sum(dim=-1, keepdim=True),
-                      expert_ids=expert_ids, keep=keep)
+    if r.renormalized:
+        gates = gates / gates.sum(dim=-1, keepdim=True)
+    return r._replace(gates=gates, expert_ids=expert_ids, keep=keep)
 
 
 @contextlib.contextmanager
@@ -179,6 +212,9 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig,
     """
     G, S, d = x.shape
     E = cfg.n_experts
+    if shardctx.is_dtensor(x) and (cfg.held is not None or cfg.dropless):
+        raise ValueError("a held share of the experts, or dropless "
+                         "routing, runs on plain tensors only")
     split = shardctx.moe_group_split(S)
     if shardctx.is_dtensor(x) and E % max(1, shardctx.tp_size()) == 0:
         out, routed, prob = _moe_ep(p, x, cfg)
@@ -315,21 +351,32 @@ def _stationary_pick(p: Params, x: torch.Tensor, r: Routing, ep,
     return out.view(R, S, d)
 
 
-def dispatch(r: Routing, x: torch.Tensor, cfg: MoEConfig
+def dispatch(r: Routing, x: torch.Tensor, cfg: MoEConfig,
+             span: Optional[CallSpan] = None
              ) -> Tuple[List[int], torch.Tensor, torch.Tensor]:
-    """The (token, choice) pairs of ``r`` grouped by expert, for x
-    (G, S, d): (the number of kept pairs of each expert, the pairs' tokens
-    in expert order, their combine weights: f32 of the gates rounded to
-    x's dtype). A dropped pair takes the key E and sorts last, past every
-    expert's rows."""
+    """The (token, choice) pairs of ``r`` grouped by held expert, for x
+    (G, S, d): (the number of kept pairs of each held expert, the pairs'
+    tokens in expert order, their combine weights: f32 of the gates
+    rounded to x's dtype). A dropped pair, or one routed to an expert not
+    held, takes the key ``n`` (the experts held) and sorts last, past every
+    held expert's rows. The counts come to the host in one copy, the one
+    sync of a layer (``torch.bincount`` would add two on a CUDA tensor),
+    after every launch of the dispatch; a traced call's ``span`` enters
+    phase ``repro_torch.moe.sync`` for that wait."""
     G, S, _ = x.shape
-    E, K = cfg.n_experts, cfg.top_k
-    key = torch.where(r.keep, r.expert_ids, E).reshape(-1)
+    K = cfg.top_k
+    first, n = cfg.held_range
+    e = r.expert_ids - first if first else r.expert_ids
+    held = r.keep if cfg.held is None else r.keep & (e >= 0) & (e < n)
+    key = torch.where(held, e, n).reshape(-1)
     order = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=E + 1)[:E].tolist()
+    counts = torch.zeros(n + 1, dtype=key.dtype, device=key.device)
+    counts = counts.scatter_add_(0, key, torch.ones_like(key))[:n]
     token = torch.arange(G * S, device=x.device).repeat_interleave(K)[order]
     weight = r.gates.reshape(-1)[order].to(x.dtype).float()
-    return counts, token, weight
+    if span is not None:
+        span.phase("repro_torch.moe.sync")
+    return counts.tolist(), token, weight
 
 
 def _moe_stationary(p: Params, x, cfg: MoEConfig):
@@ -361,9 +408,32 @@ def _moe_stationary(p: Params, x, cfg: MoEConfig):
 def _moe_groups(p: Params, x: torch.Tensor, cfg: MoEConfig,
                 layout: str = "unsharded"
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The layer on dispatch groups x (G, S, d) (``_moe_held``): (out
+    (G, S, d), the choices routed to each expert (E,) f32, the router's
+    probabilities summed over the tokens (E,)). A profiler that records
+    sees it in phases, ``repro_torch.moe.route`` (the router and the
+    dispatch's launches), ``repro_torch.moe.sync`` (the host's wait for the
+    held experts' counts) and ``repro_torch.moe.experts`` (the rest), and
+    the layer's counters are kept (``_count``)."""
+    span = spans.begin("repro_torch.moe.route")
+    if span is None:
+        return _moe_held(p, x, cfg, layout)[:3]
+    with host_syncs(x.device) as syncs:
+        out, routed, prob, rows = _moe_held(p, x, cfg, layout, span)
+        span.end()
+    _count(rows, syncs[0])
+    return out, routed, prob
+
+
+def _moe_held(p: Params, x: torch.Tensor, cfg: MoEConfig, layout: str,
+              span: Optional[CallSpan] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         List[int]]:
     """The layer on dispatch groups x (G, S, d): (out (G, S, d), the
     choices routed to each expert (E,) f32, the router's probabilities
-    summed over the tokens (E,)); ``layout`` is recorded in the routing.
+    summed over the tokens (E,), the rows each held expert got);
+    ``layout`` is recorded in the routing. Only the held experts run
+    (``cfg.held``; all by default), each on the rows routed to it.
 
     The combine weights are the gates rounded to x's dtype, as the
     reference's ``combine.astype(x.dtype)``; the weighted expert outputs
@@ -376,7 +446,9 @@ def _moe_groups(p: Params, x: torch.Tensor, cfg: MoEConfig,
     E = cfg.n_experts
     r = _route(p, x, cfg, layout)
     xf = x.reshape(G * S, d)
-    counts, token, weight = dispatch(r, x, cfg)
+    counts, token, weight = dispatch(r, x, cfg, span)
+    if span is not None:
+        span.phase("repro_torch.moe.experts")
     out = torch.zeros((G * S, d), dtype=torch.float32, device=x.device)
     start = 0
     for e, n in enumerate(counts):
@@ -395,4 +467,16 @@ def _moe_groups(p: Params, x: torch.Tensor, cfg: MoEConfig,
     out = out.to(x.dtype).reshape(G, S, d)
     if cfg.shared_expert:
         out = out + swiglu(p["shared"], x)
-    return (out, *_stats(r, E))
+    return (out, *_stats(r, E), counts)
+
+
+def _count(rows: List[int], syncs: int) -> None:
+    """A traced layer's counters: the host's waits on the device that the
+    layer made (``host_syncs``), the rows its held experts got, and their
+    largest over their mean."""
+    spans.count("repro_torch.moe.syncs", syncs)
+    total = sum(rows)
+    spans.count("repro_torch.moe.rows", total)
+    if total:
+        spans.count("repro_torch.moe.load_max_over_mean",
+                    max(rows) * len(rows) / total)

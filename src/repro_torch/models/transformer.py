@@ -4,6 +4,10 @@ with a sliding window (mixtral) or a shared expert (llama4), MLA
 (minicpm3), the VLM backbone with M-RoPE (qwen2-vl), the RG-LRU hybrid
 with local attention (recurrentgemma) and xLSTM (mLSTM and sLSTM blocks)
 — the full-sequence forward (training and prefill) and one-token decode.
+Beyond the JAX package's zoo, DeepSeek-V2 (``configs.deepseek_v2_lite``):
+MLA with MoE (``mla_moe``) after a leading dense MLA layer
+(``pattern_head``), and an untied head (``lm_head``); its decode runs
+through the MLA latent cache in both kinds.
 
 The reference scans over groups of layers with stacked parameters; here
 ``Transformer.layers`` is a ``ModuleList`` with one entry a block, in the
@@ -31,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.deepseek_v2_lite import DeepSeekV2Config
 from repro_torch.distributed import shardctx as S
 from . import attention as A
 from . import blocks as B
@@ -39,7 +44,9 @@ from . import recurrent as R
 
 Params = Dict[str, Any]
 
-KINDS = ("attn", "attn_moe", "mla", "rglru", "mlstm", "slstm")
+KINDS = ("attn", "attn_moe", "mla", "mla_moe", "rglru", "mlstm", "slstm")
+MOE_KINDS = ("attn_moe", "mla_moe")
+MLA_KINDS = ("mla", "mla_moe")
 #: Param keys kept f32 wherever they stand, as dicts (the norms' scales and
 #: biases, the mLSTM's ``norm``, whisper's ``ln3`` and final norms) or
 #: leaves (the MoE router: a bf16 router would change which experts top-k
@@ -87,17 +94,28 @@ def _attn_cfg(cfg: ArchConfig) -> A.AttnConfig:
 
 def _mla_cfg(cfg: ArchConfig) -> A.MLAConfig:
     m = cfg.mla
+    # DeepSeek-V2: YaRN where its config states it, the published pairing
+    ds = isinstance(cfg, DeepSeekV2Config)
     return A.MLAConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
                        q_lora_rank=m.q_lora_rank, kv_lora_rank=m.kv_lora_rank,
                        qk_nope_dim=m.qk_nope_dim, qk_rope_dim=m.qk_rope_dim,
-                       v_head_dim=m.v_head_dim, rope_theta=cfg.rope_theta)
+                       v_head_dim=m.v_head_dim, rope_theta=cfg.rope_theta,
+                       yarn=cfg.yarn if ds else None, rope_interleaved=ds)
 
 
 def _moe_cfg(cfg: ArchConfig) -> M.MoEConfig:
-    return M.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+    if not isinstance(cfg, DeepSeekV2Config):
+        return M.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                           n_experts=cfg.n_experts, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor,
+                           shared_expert=cfg.shared_expert)
+    return M.MoEConfig(d_model=cfg.d_model, d_ff=cfg.expert_ff,
                        n_experts=cfg.n_experts, top_k=cfg.top_k,
                        capacity_factor=cfg.capacity_factor,
-                       shared_expert=cfg.shared_expert)
+                       shared_expert=cfg.n_shared_experts > 0,
+                       renormalize=False, dropless=True,
+                       shared_ff=cfg.n_shared_experts * cfg.expert_ff,
+                       held=cfg.experts_held)
 
 
 def _rglru_cfg(cfg: ArchConfig) -> R.RGLRUConfig:
@@ -146,13 +164,13 @@ def block_init(gen, kind: str, cfg: ArchConfig, device=None,
     if kind == "slstm":
         return {"ln1": _norm_init(cfg, device),
                 "core": R.slstm_init(gen, _slstm_cfg(cfg), **kw)}
-    if kind == "mla":
+    if kind in MLA_KINDS:
         mixer = {"mla": A.mla_init(gen, _mla_cfg(cfg), **kw)}
     elif kind == "rglru":
         mixer = {"rglru": R.rglru_init(gen, _rglru_cfg(cfg), **kw)}
     else:
         mixer = {"attn": A.attn_init(gen, _attn_cfg(cfg), **kw)}
-    if kind == "attn_moe":
+    if kind in MOE_KINDS:
         ffn = {"moe": M.moe_init(gen, _moe_cfg(cfg), **kw)}
     else:
         ffn = {"mlp": _mlp_init(gen, cfg, device, weight_dtype)}
@@ -162,7 +180,7 @@ def block_init(gen, kind: str, cfg: ArchConfig, device=None,
 
 def _ffn(kind: str, p: Params, h: torch.Tensor, cfg: ArchConfig):
     """The block's second half on the normed h: (out, aux)."""
-    if kind == "attn_moe":
+    if kind in MOE_KINDS:
         return M.moe_forward(p["moe"], h, _moe_cfg(cfg))
     return _mlp(cfg, p["mlp"], h), _zero(h)
 
@@ -192,7 +210,7 @@ def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
     if kind == "slstm":
         return (x + _rows(R.slstm_block, p["core"], h, _slstm_cfg(cfg)),
                 _zero(x))
-    if kind == "mla":
+    if kind in MLA_KINDS:
         # MLA's RoPE takes one position stream: M-RoPE's first (temporal)
         if positions is not None and positions.dim() == 3:
             positions = positions[..., 0]
@@ -208,7 +226,7 @@ def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
 def block_cache_init(kind: str, cfg: ArchConfig, batch: int, max_len: int,
                      device=None):
     check_kind(kind)
-    if kind == "mla":
+    if kind in MLA_KINDS:
         return A.mla_init_cache(_mla_cfg(cfg), batch, max_len, device=device)
     if kind == "rglru":
         return R.rglru_init_state(_rglru_cfg(cfg), batch, device=device)
@@ -232,7 +250,7 @@ def block_decode(kind: str, p: Params, x: torch.Tensor, cache,
     if kind == "slstm":
         h, cache = R.slstm_step(p["core"], h, cache, _slstm_cfg(cfg))
         return x + h, cache, _zero(x)
-    if kind == "mla":
+    if kind in MLA_KINDS:
         h, cache = A.mla_decode_step(p["mla"], h, cache, _mla_cfg(cfg))
     elif kind == "rglru":
         h, cache = R.rglru_step(p["rglru"], h, cache, _rglru_cfg(cfg))
@@ -277,8 +295,20 @@ class _Tree(nn.Module):
 
 
 def layer_kinds(cfg: ArchConfig) -> List[str]:
-    """The block kinds in the order the reference's scan visits them."""
-    return list(cfg.pattern) * cfg.n_groups + list(cfg.pattern_tail)
+    """The block kinds in the order the reference's scan visits them (a
+    ``DeepSeekV2Config``'s ``pattern_head`` first)."""
+    return (list(getattr(cfg, "pattern_head", ())) + list(cfg.pattern)
+            * cfg.n_groups + list(cfg.pattern_tail))
+
+
+def _head_len(cfg: ArchConfig) -> int:
+    return len(getattr(cfg, "pattern_head", ()))
+
+
+def tied(cfg: ArchConfig) -> bool:
+    """Whether the LM head is the embedding's transpose (every zoo arch);
+    else (DeepSeek-V2) the model holds an ``lm_head``."""
+    return not isinstance(cfg, DeepSeekV2Config)
 
 
 def init_params(cfg: ArchConfig, *, device, seed: int = 0,
@@ -289,21 +319,28 @@ def init_params(cfg: ArchConfig, *, device, seed: int = 0,
     its ``lam`` is the reference's fixed one), from a ``torch.Generator``
     seeded with ``seed``; drawn f32 one tensor (one expert) at a time and
     cast to ``weight_dtype``, the leaves of ``leaf_is_f32`` kept f32. The
-    numbers differ from the JAX package's for the same seed."""
+    numbers differ from the JAX package's for the same seed. An untied
+    config's ``lm_head`` is drawn last."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return {"embedding": B.embedding_init(gen, cfg.vocab, cfg.d_model,
-                                          dtype=weight_dtype, device=device),
-            "final_norm": _norm_init(cfg, device),
-            "layers": [block_init(gen, kind, cfg, device=device,
-                                  weight_dtype=weight_dtype)
-                       for kind in layer_kinds(cfg)]}
+    params = {"embedding": B.embedding_init(gen, cfg.vocab, cfg.d_model,
+                                            dtype=weight_dtype,
+                                            device=device),
+              "final_norm": _norm_init(cfg, device),
+              "layers": [block_init(gen, kind, cfg, device=device,
+                                    weight_dtype=weight_dtype)
+                         for kind in layer_kinds(cfg)]}
+    if not tied(cfg):
+        params["lm_head"] = B.dense_init(gen, cfg.d_model, cfg.vocab,
+                                         dtype=weight_dtype, device=device)
+    return params
 
 
 class Transformer(nn.Module):
     """The model bound to an ArchConfig and its weights.
 
     ``params`` is ``{"embedding", "final_norm", "layers": [one dict a
-    block]}`` (``init_params``; ``params_from_numpy`` for the reference's
+    block]}``, and ``"lm_head"`` (``{"w": (d, vocab)}``) for an untied
+    config (``init_params``; ``params_from_numpy`` for the reference's
     pytree). The tensors are used as given, not copied. ``remat``
     checkpoints each pattern group of a forward that carries a gradient.
     """
@@ -319,9 +356,15 @@ class Transformer(nn.Module):
                              f"{len(self.kinds)} blocks")
         for k in self.kinds:
             check_kind(k)
+        if tied(cfg) == ("lm_head" in params):
+            raise ValueError(f"{cfg.name}: an lm_head is given "
+                             f"{'' if 'lm_head' in params else 'not '}"
+                             f"for a{' tied' if tied(cfg) else 'n untied'} "
+                             f"head")
         self.embedding = _Tree(params["embedding"])
         self.final_norm = _Tree(params["final_norm"])
         self.layers = nn.ModuleList(_Tree(p) for p in params["layers"])
+        self.lm_head = None if tied(cfg) else _Tree(params["lm_head"])
 
     @property
     def device(self) -> torch.device:
@@ -330,9 +373,19 @@ class Transformer(nn.Module):
     def params(self) -> Params:
         """The weights in this layout, the tensors themselves: the tree
         the optimizer updates in place."""
-        return {"embedding": self.embedding.tree(),
-                "final_norm": self.final_norm.tree(),
-                "layers": [p.tree() for p in self.layers]}
+        out = {"embedding": self.embedding.tree(),
+               "final_norm": self.final_norm.tree(),
+               "layers": [p.tree() for p in self.layers]}
+        if self.lm_head is not None:
+            out["lm_head"] = self.lm_head.tree()
+        return out
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the head on x, logits in f32."""
+        x = _norm(self.cfg, self.final_norm, x)
+        if self.lm_head is None:
+            return B.unembed(self.embedding, x)
+        return B.dense(self.lm_head, x).float()
 
     def cast(self, weight_dtype) -> "Transformer":
         """A copy of the model with its weights in ``weight_dtype`` (a leaf
@@ -345,9 +398,11 @@ class Transformer(nn.Module):
     def forward(self, tokens: Optional[torch.Tensor],
                 embeds: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
-                constrain=None,
+                constrain=None, last: bool = False,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (logits (B,S,V) f32, aux loss scalar). ``embeds``
+        """Returns (logits (B,S,V) f32, aux loss scalar); with ``last``,
+        the final norm and the head run on the last position alone, and
+        the logits are (B,1,V). ``embeds``
         overrides the token embedding (stub frontends). The model's
         ``remat`` checkpoints each pattern group when grad mode is on; the
         tail's blocks are not checkpointed, as in the reference.
@@ -362,8 +417,12 @@ class Transformer(nn.Module):
             x = constrain(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         n = len(cfg.pattern)
-        n_body = cfg.n_groups * n
-        for g0 in range(0, n_body, n):
+        h0 = _head_len(cfg)
+        for kind, p in zip(self.kinds[:h0], self.layers[:h0]):
+            x, a = block_apply(kind, p, x, cfg, positions)
+            aux = aux + a
+        n_body = h0 + cfg.n_groups * n
+        for g0 in range(h0, n_body, n):
             group = list(zip(self.kinds[g0:g0 + n], self.layers[g0:g0 + n]))
             if remat:
                 x, a = checkpoint(_group_apply, group, x, cfg, positions,
@@ -375,8 +434,9 @@ class Transformer(nn.Module):
         for kind, p in zip(self.kinds[n_body:], self.layers[n_body:]):
             x, a = block_apply(kind, p, x, cfg, positions)
             aux = aux + a
-        x = _norm(cfg, self.final_norm, x)
-        return B.unembed(self.embedding, x), aux
+        if last:
+            x = x[:, -1:]
+        return self._logits(x), aux
 
     # -- KV cache ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int):
@@ -400,9 +460,7 @@ class Transformer(nn.Module):
         for kind, p, c in zip(self.kinds, self.layers, cache["layers"]):
             x, c, _ = block_decode(kind, p, x, c, cfg)
             new.append(c)
-        x = _norm(cfg, self.final_norm, x)
-        return B.unembed(self.embedding, x), {"layers": new,
-                                              "pos": cache["pos"] + 1}
+        return self._logits(x), {"layers": new, "pos": cache["pos"] + 1}
 
 
 def _group_apply(group, x: torch.Tensor, cfg: ArchConfig,
@@ -472,17 +530,29 @@ def _port_tree(cfg: ArchConfig, tree: Params, device,
                weight_dtype) -> Params:
     """A tree in this layout with each leaf on ``device``, in f32 or
     ``weight_dtype`` by ``leaf_is_f32``."""
-    return {"embedding": load_tree(tree["embedding"], device,
-                                   weight_dtype=weight_dtype),
-            "final_norm": load_tree(tree["final_norm"], device,
-                                    path=("final_norm",)),
-            "layers": [load_tree(p, device, kind, weight_dtype=weight_dtype)
-                       for p, kind in zip(tree["layers"], layer_kinds(cfg))]}
+    out = {"embedding": load_tree(tree["embedding"], device,
+                                  weight_dtype=weight_dtype),
+           "final_norm": load_tree(tree["final_norm"], device,
+                                   path=("final_norm",)),
+           "layers": [load_tree(p, device, kind, weight_dtype=weight_dtype)
+                      for p, kind in zip(tree["layers"], layer_kinds(cfg))]}
+    if "lm_head" in tree:
+        out["lm_head"] = load_tree(tree["lm_head"], device,
+                                   weight_dtype=weight_dtype)
+    return out
+
+
+def _zoo_only(cfg: ArchConfig) -> None:
+    """Raises for a config the reference's stacked layout cannot hold (one
+    outside the JAX package's zoo: leading layers or an untied head)."""
+    if _head_len(cfg) or not tied(cfg):
+        raise ValueError(f"{cfg.name} has no layout in the JAX package")
 
 
 def from_reference(cfg: ArchConfig, tree: Params) -> Params:
     """The reference's stacked tree (``groups`` unstacked along axis 0 into
     the layers, then ``tail``) in this layout, the leaves as they are."""
+    _zoo_only(cfg)
     blocks = [unstack(tree["groups"], g)[f"b{i}"]
               for g in range(cfg.n_groups) for i in range(len(cfg.pattern))]
     blocks += list(tree.get("tail", []))
@@ -495,6 +565,7 @@ def to_reference(cfg: ArchConfig, tree: Params) -> Params:
     stacked layout, as CPU tensors of the leaves' own dtypes: ``groups``
     (``b{i}``, each leaf stacked over the groups) and ``tail`` where the
     pattern has one."""
+    _zoo_only(cfg)
     n = len(cfg.pattern)
     layers = tree["layers"]
     out = {"embedding": to_cpu(tree["embedding"]),
