@@ -56,7 +56,16 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      attention (B*H 10, S 8192, d 256, window 2048 and without) and at
      whisper's (B*H 128, d 64: the encoder, S = T = 1500 without the mask;
      the cross attention, 448 queries over 1500 keys without it; the
-     decoder's causal self-attention at S = 448);
+     decoder's causal self-attention at S = 448); K6, the MoE layer's
+     grouped call, on one dispatch of a random router at
+     DeepSeek-V2-Lite's benchmark layer (S 16,384, experts 0-7 of 64 held,
+     top-6, d 2048, f 1408) and at mixtral-8x7b's (S 8192, top-2 of 8,
+     d 4096, f 14336), each held against its plain version (the layer's
+     loop over the held experts) and an f32 reference by relative RMS
+     (K6_TOL, as tests/test_torch_moe_grouped_cuda.py), then timed beside
+     its bound, the loop (with its host copy of the counts) and
+     ``torch._grouped_mm`` (the library's grouped GEMM over the same
+     device-side offsets, with the same gather and combine around it);
   7. the H100 latency model (``repro_torch.core.h100_model``) against the
      card: its measured constants calibrated anew (``h100_model.calibrate``:
      the launch floor, K2 at 2/5/9 layers and K3 for one event at phi
@@ -83,7 +92,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      ``build``, each model at its published width with random bf16 weights
      from a seed, freed before the next, its peak memory printed, and each
      prefill forward with the launch counts set to 0 just before and read
-     just after (K5 bf16 exactly once a layer): mixtral-8x7b cut to 16 of
+     just after (K5 bf16 exactly once a layer, and K6, the MoE layer's
+     grouped call, once a MoE layer at its widths): mixtral-8x7b cut to 16 of
      its 32 layers (a prefill of 8192 tokens, so its window of 4096 binds;
      layer 0's windowed attention through K5 against its plain version on
      one KV group; the share of expert choices dropped by capacity; decode
@@ -1114,6 +1124,145 @@ def time_flash_models(dev) -> dict:
     return out
 
 
+# K6 against its plain version (tests/test_torch_moe_grouped_cuda.py): its
+# relative RMS error to an f32 reference of the held experts may pass the
+# loop's by at most a quarter plus "abs", and the two outputs lie within
+# "apart" relative RMS of each other.
+K6_TOL = {"rel": 1.25, "abs": 1e-4, "apart": 0.01}
+# (published configuration, tokens of the layer's one dispatch group)
+K6_SHAPES = (("deepseek-v2-lite", 16384), ("mixtral-8x7b", 8192))
+
+
+def _held_f32(p, xf, d, counts):
+    """The held experts on x's rows in f32 from the same bf16 operands, g,
+    u, SiLU and h rounded to bf16 as K6 and the loop round them."""
+    import torch.nn.functional as F
+    out = xf.float().new_zeros(xf.shape)
+    bf = lambda t: t.bfloat16().float()
+    start = 0
+    for e, n in enumerate(counts):
+        tok = d.token[start:start + n]
+        xe = xf[tok].float()
+        g, u = bf(xe @ p["wg"][e].float()), bf(xe @ p["wu"][e].float())
+        h = bf(bf(F.silu(g)) * u)
+        out.index_add_(0, tok, (h @ p["wd"][e].float())
+                       * d.weight[start:start + n, None])
+        start += n
+    return out
+
+
+def _grouped_mm_experts(p, xf, d, rows: int):
+    """The held experts by the library: the ``rows`` held rows' tokens
+    gathered, gate, up and down by ``torch._grouped_mm`` over the experts'
+    device-side offsets, and the gate-weighted outputs added into their
+    tokens in f32 (``index_add_``), rounded once. ``rows``, the held rows,
+    is read on the host once, outside any timed call: the library's shapes
+    need it."""
+    import torch
+    import torch.nn.functional as F
+    offs = d.offsets[1:].to(torch.int32)
+    tok = d.token[:rows]
+    xs = xf[tok]
+    h = (F.silu(torch._grouped_mm(xs, p["wg"], offs=offs))
+         * torch._grouped_mm(xs, p["wu"], offs=offs))
+    y = torch._grouped_mm(h, p["wd"], offs=offs).float()
+    out = torch.zeros(xf.shape, dtype=torch.float32, device=xf.device)
+    return out.index_add_(0, tok, y * d.weight[:rows, None]).to(xf.dtype)
+
+
+def time_moe_grouped(dev) -> dict:
+    """Phase 6, K6 at K6_SHAPES: a random router's dispatch of random bf16
+    x and stacks at each published layer, K6 held to its plain version (the
+    loop) by K6_TOL, then K6's call, the loop and the library's grouped
+    GEMMs timed, K6's launches counted. Returns the kernels line's K6
+    entry, the DeepSeek-V2-Lite layer's numbers at its top and each shape's
+    under ``shapes``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.moe_grouped import moe_grouped
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import _moe_cfg
+    shapes = {}
+    for name, S in K6_SHAPES:
+        cfg = _moe_cfg(configs.get(name))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+        p = M.moe_init(gen, cfg, dtype=torch.bfloat16, device=dev)
+        x = torch.randn((1, S, cfg.d_model), generator=gen,
+                        device=dev).bfloat16()
+        if not M.takes_k6(p, x):
+            raise AssertionError(f"{name}: its MoE layer does not take K6")
+        K, xf = cfg.top_k, x.reshape(S, cfg.d_model)
+        d = M.dispatch(M.moe_route(p, x, cfg), x, cfg)
+        counts = M.held_counts(d)
+        rows, n = sum(counts), len(counts)
+        k6 = lambda: moe_grouped(xf, p["wg"], p["wu"], p["wd"], d.token,
+                                 d.weight, d.counts, d.offsets, d.inverse, K)
+        loop = lambda: M._experts_loop(p, xf, d, M.held_counts(d))
+        lib = lambda: _grouped_mm_experts(p, xf, d, rows)
+        launches.reset()
+        got = k6()
+        if launches.snapshot() != {"moe_grouped": 1}:
+            raise AssertionError(f"{name}: K6's call launched "
+                                 f"{launches.snapshot()}")
+        plain = loop()
+        try:
+            lib_out = lib()
+        except RuntimeError as e:   # no grouped GEMM for this card or build
+            print(f"[time] moe_grouped at {name}: torch._grouped_mm "
+                  f"refused: {str(e)[:200]}")
+            lib = lib_out = None
+        ref = _held_f32(p, xf, d, counts)
+        rms = lambda a: float((a.float() - ref).norm() / ref.norm())
+        e_k6, e_loop = rms(got), rms(plain)
+        e_lib = None if lib is None else rms(lib_out)
+        apart = float((got.float() - plain.float()).norm()
+                      / plain.float().norm())
+        if (not bool(torch.isfinite(got).all())
+                or e_k6 > K6_TOL["rel"] * e_loop + K6_TOL["abs"]
+                or apart > K6_TOL["apart"]):
+            raise AssertionError(
+                f"{name}: K6's relative RMS {e_k6:.3e} against the loop's "
+                f"{e_loop:.3e}, the two {apart:.3e} apart (K6_TOL {K6_TOL})")
+        del got, plain, lib_out, ref
+        kt, pt = (_time_ms(fn, iters=20, warmup=3, graph=False)
+                  for fn in (k6, loop))
+        lt = (_time_ms(lib, iters=20, warmup=3, graph=False) if lib
+              else {"ms": None})
+        f, dm = cfg.d_ff, cfg.d_model
+        # gate, up and down of every held row; the stacks read once, x
+        # read and the output written once
+        ops = 2 * rows * dm * f * 3
+        bound = _bound(3 * n * dm * f * 2 + 2 * S * dm * 2, ops,
+                       BF16_OPS_PER_S)
+        shapes[name] = dict(
+            ms=kt["ms"], plain_ms=pt["ms"], library_ms=lt["ms"], **bound,
+            bound_share=bound["bound_ms"] / kt["ms"], rel_rms=e_k6,
+            plain_rel_rms=e_loop, library_rel_rms=e_lib, rows=rows,
+            max_over_mean=max(counts) * n / rows,
+            shape=f"{name} MoE layer: S={S}, {n} held of {cfg.n_experts} "
+                  f"experts, top-{K}, d={dm}, f={f}, bf16")
+        print(f"[time] moe_grouped at {name} (S={S}, {n} held experts of "
+              f"{cfg.n_experts}, top-{K}, d {dm}, f {f}; {rows} held rows, "
+              f"busiest {max(counts) * n / rows:.3f} x the mean): "
+              f"call_ms {kt['ms']:.4f}, bound_ms {bound['bound_ms']:.4f} "
+              f"({bound['bound_by']}; {bound['bound_ms'] / kt['ms']:.3f} of "
+              f"it), plain_ms {pt['ms']:.4f} (the loop), library_ms "
+              f"{lt['ms']} (torch._grouped_mm); relative RMS to the f32 "
+              f"reference: K6 {e_k6:.3e}, loop {e_loop:.3e}, library "
+              f"{e_lib}; K6 and the loop {apart:.3e} apart")
+        del p, x, xf, d
+        torch.cuda.empty_cache()
+    top = shapes[K6_SHAPES[0][0]]
+    return dict(name="moe_grouped", route="cuda",
+                source="src/repro_torch/kernels/csrc/moe_grouped.cu",
+                replaces=None, launches=1, max_abs_err=None,
+                **{k: top[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by", "bytes",
+                                       "ops", "bound_share", "shape")},
+                shapes=shapes)
+
+
 def time_deepsets_shapes(dev, rng, x, phi, rho) -> dict:
     """K3 beside the served batch ``x``: one event (the card's per-event
     device time); phi at 2, 3 and 6 layers of width 32 (the cost of one
@@ -1706,21 +1855,24 @@ def _build_lm(dev, name: str, n_layers, tag: str = "lm9"):
     return cfg, model, w_bytes
 
 
-def _counted_prefill(model, cfg, b: int, s: int, *, want=None,
+def _counted_prefill(model, cfg, b: int, s: int, *, want=None, k6: int = 0,
                      tag: str = "lm9", **inputs):
     """One prefill forward with the launch counts set to 0 just before and
     read just after; fails unless K5 launched exactly ``want`` times (once
-    a layer by default) and the logits are finite f32 of the full shape."""
+    a layer by default), K6 exactly ``k6`` times, and the logits are finite
+    f32 of the full shape."""
     import torch
     from repro_torch.kernels import launches
     want = cfg.n_layers if want is None else want
+    expect = {k: n for k, n in (("flash_attn", want), ("moe_grouped", k6))
+              if n}
     launches.reset()
     logits, aux = model(inputs.pop("toks", None), **inputs)
     torch.cuda.synchronize()
     counts = launches.snapshot()
-    if counts != ({"flash_attn": want} if want else {}):
+    if counts != expect:
         raise AssertionError(f"{cfg.name}: a prefill launched {counts}; want "
-                             f"flash_attn x {want}")
+                             f"{expect}")
     if (logits.shape != (b, s, cfg.vocab) or logits.dtype != torch.float32
             or not bool(torch.isfinite(logits).all())):
         raise AssertionError(f"{cfg.name}: prefill logits "
@@ -1844,7 +1996,8 @@ def drive_mixtral(dev, err: dict) -> dict:
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
     fwd = []
     with M.routing_log(fwd):
-        logits, counts = _counted_prefill(model, cfg, b, s, toks=toks)
+        # K6 once a layer: each of the 16 is a MoE layer at its widths
+        logits, counts = _counted_prefill(model, cfg, b, s, k6=16, toks=toks)
     k = cfg.top_k
     dropped = [r.dropped for r in fwd]
     share = sum(dropped) / (len(fwd) * b * s * k)
@@ -2014,7 +2167,8 @@ def drive_llama4(dev) -> dict:
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
     fwd = []
     with M.routing_log(fwd):
-        logits, counts = _counted_prefill(model, cfg, b, s, toks=toks)
+        # K6 once: the second of its two layers is its MoE layer
+        logits, counts = _counted_prefill(model, cfg, b, s, k6=1, toks=toks)
     # The shared expert on the card: the MoE layer's output for a token whose
     # only choice capacity dropped is the shared expert's alone.
     x = B.embed(model.embedding, toks)
@@ -3341,6 +3495,7 @@ def main() -> int:
     paths = drive_entry_points(dev, err)
     kernels = time_kernels(dev, runs, err, paths)
     shapes = time_flash_models(dev)
+    kernels.append(time_moe_grouped(dev))
     check_model(dev)
     dryruns = start_dryruns()
     try:

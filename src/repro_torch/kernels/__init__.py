@@ -17,13 +17,21 @@
                      on the FMA units, bf16 on the tensor cores (``wgmma``,
                      f32 accumulation); and its causal GQA wrapper
                      (``flash_mha``); replaces ``flash_attention``
+* ``moe_grouped``  — a MoE layer's held experts in one grouped call (K6):
+                     gate/up and down on the tensor cores (``wgmma``) over
+                     a device-side tile table, and a combine in choice
+                     order; replaces no TPU kernel (the JAX package leaves
+                     its expert einsums to XLA); its plain version is the
+                     layer's loop over the held experts (``models.moe``)
 
 Each kernel has ``ops.py`` (the wrapper: checks, dispatch, launch count) and
-``ref.py`` (its plain PyTorch version). The CUDA sources are in ``csrc/``
+``ref.py`` (its plain PyTorch version), but K6, whose plain version is the
+loop it replaces in ``models.moe``. The CUDA sources are in ``csrc/``
 and are built by ``_build`` at first use. A CPU tensor runs the plain
 version; a CUDA tensor launches the kernel or raises.
 """
-from . import cascade_mlp, flash_attn, global_agg, mm_int8
+from . import cascade_mlp, flash_attn, global_agg, mm_int8, moe_grouped
 from ._build import launches
 
-__all__ = ["mm_int8", "cascade_mlp", "global_agg", "flash_attn", "launches"]
+__all__ = ["mm_int8", "cascade_mlp", "global_agg", "flash_attn",
+           "moe_grouped", "launches"]

@@ -35,7 +35,7 @@ import threading
 import time
 import warnings
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -67,6 +67,9 @@ _SIGNATURES = {
     # plan, x, out, batch, m, stream
     "deepsets_plan_launch": [_P, _P, _P, _I, _I, _P],
     "deepsets_plan_free": [_P],
+    # x, wg, wu, wd, token, weight, offsets, tiles, n_tiles, inverse, add,
+    # h, y, out, tokens, top_k, n, d, f, max_tiles, stream
+    "moe_grouped_launch": [_P] * 14 + [_I] * 6 + [_P],
 }
 
 # Shared memory one block may use on sm_90 (227 KB).
@@ -157,12 +160,14 @@ class HotSpans:
     whatever runs (a once-a-process set-up) goes to :meth:`add`. Beside the
     spans, counters (:meth:`count`): how many values were added under a
     name, and their sum; a caller counts only where its :meth:`begin` gave
-    a span, so that nothing is counted with no profiler."""
+    a span, so that nothing is counted with no profiler. Counters read from
+    a device tensor wait for :meth:`counts` (:meth:`count_later`)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._totals: Dict[str, List[int]] = {}
         self._counts: Dict[str, List[float]] = {}
+        self._later: List[Tuple[torch.Tensor, Callable]] = []
 
     def begin(self, phase: str) -> Optional[CallSpan]:
         """A wrapper's call, its first phase ``phase`` open, or None where no
@@ -198,8 +203,25 @@ class HotSpans:
             c[0] += 1
             c[1] += value
 
+    def count_later(self, values: torch.Tensor,
+                    fold: Callable[[list], Iterable[Tuple[str, float]]]
+                    ) -> None:
+        """Counters to be taken from ``values``, a tensor that may lie on a
+        device, when :meth:`counts` is next read: ``fold`` of its values as a
+        list gives the (name, value) pairs to :meth:`count`. A traced call
+        thus makes the host wait for nothing; the copy waits until the
+        counters are read, after the traced stretch."""
+        with self._lock:
+            self._later.append((values, fold))
+
     def counts(self) -> Dict[str, Tuple[int, float]]:
-        """name -> (values added, their sum)."""
+        """name -> (values added, their sum), with the pending
+        :meth:`count_later` values folded in first."""
+        with self._lock:
+            later, self._later = self._later, []
+        for values, fold in later:
+            for name, value in fold(values.tolist()):
+                self.count(name, value)
         with self._lock:
             return {k: (n, v) for k, (n, v) in self._counts.items()}
 

@@ -108,26 +108,38 @@ def _fake_mode(mode):
             setattr(cls, "local_shard_size_and_offset", orig)
 
 
-def _full_capacity(r, x, cfg, span=None):
+def _full_capacity(r, x, cfg):
     """``moe.dispatch`` for fake tensors, which hold no routing to count:
     every expert takes its full queue, C slots a group, as the reference's
-    static (E, G, C) dispatch computes them all."""
-    G = x.shape[0]
-    n = G * r.capacity
+    static (E, G, C) dispatch computes them all. Only the fields the loop
+    reads are real: ``counts`` (E,) and the E·G·C rows' tokens and
+    weights."""
+    from repro_torch.models import moe
+    n = x.shape[0] * r.capacity
+    counts = torch.full((cfg.n_experts,), n, dtype=torch.long,
+                        device=x.device)
     token = torch.zeros(cfg.n_experts * n, dtype=torch.long, device=x.device)
-    return [n] * cfg.n_experts, token, torch.zeros(token.shape,
-                                                   device=x.device)
+    return moe.Dispatch(counts, counts, token,
+                        torch.zeros(token.shape, device=x.device), token)
+
+
+def _full_counts(d):
+    """``moe.held_counts`` for ``_full_capacity``'s dispatch: its counts
+    are known without reading the (fake) tensor."""
+    E = d.counts.shape[0]
+    return [d.token.shape[0] // E] * E
 
 
 @contextlib.contextmanager
 def _static_moe_dispatch():
     """``models.moe`` dispatches by ``_full_capacity`` while entered."""
     from repro_torch.models import moe
-    saved, moe.dispatch = moe.dispatch, _full_capacity
+    saved = moe.dispatch, moe.held_counts
+    moe.dispatch, moe.held_counts = _full_capacity, _full_counts
     try:
         yield
     finally:
-        moe.dispatch = saved
+        moe.dispatch, moe.held_counts = saved
 
 
 @dataclasses.dataclass

@@ -21,13 +21,36 @@ is left out; nothing stands in for them or for their exchange.
 
 The reference dispatches and combines with (G, S, K, E, C) one-hot einsums
 (1.3 GB in f32 at mixtral's S = 8192, and some 2.7 TFLOP a layer). The same
-sums are taken here in index form: the kept (token, choice) pairs are
-grouped by expert, each expert's SwiGLU runs on the rows routed to it (the
-stacked (E, d, f) weights, ``torch.matmul``, as the reference leaves its
-expert einsums to XLA), and the gate-weighted outputs are added back into
-their tokens with ``index_add_``. An expert that received no token is
-skipped (decode), which changes no sum: its one-hot rows are zero in the
-reference. On a mesh the dispatch groups follow the reference's sequence
+sums are taken here in index form: ``dispatch`` sorts the kept (token,
+choice) pairs by held expert on the device and builds the tables that size
+the experts' work there (each held expert's row count and first sorted
+row, the inverse of the sort). Then one of two paths runs the held
+experts' SwiGLUs on the rows routed to them:
+
+* the grouped path (``takes_k6``): where x and the expert stacks are plain
+  CUDA tensors in bf16, K6's tiles divide d and f, and no gradient has to
+  pass through the layer, one call of ``kernels.moe_grouped`` (K6) reads
+  those tables on the device (and builds its tile table from them there),
+  so the layer never waits for the device: no count comes to the host. It
+  serves dropless and capacity routing alike (a dropped choice sorts past
+  every held expert, as one routed to an expert not held).
+* the loop (``_experts_loop``, K6's plain version): everywhere else (CPU
+  tensors, f32, DTensor weights where they lie in ``_moe_stationary``,
+  training: K6 writes a fresh tensor that autograd cannot see through),
+  the held experts' row counts come to the host in one copy, and each
+  expert with rows runs on them (the stacked (E, d, f) weights,
+  ``torch.matmul``, as the reference leaves its expert einsums to XLA); its
+  gate-weighted outputs are added back into their tokens with
+  ``index_add_``. An expert that received no token is skipped (decode),
+  which changes no sum: its one-hot rows are zero in the reference.
+
+Both sum a token's expert outputs in f32 in a fixed order and round once,
+so a call gives the same bits every time: the loop in expert order (its
+``index_add_`` of one expert never meets a token twice), K6 in choice order
+through the inverse permutation, with no atomics. The two orders differ only
+in the f32 rounding of the sum.
+
+On a mesh the dispatch groups follow the reference's sequence
 split (``moe_forward``), and its rule for the layout of its dispatched
 tensors (``xin``/``eout``, ``moe.py:102-111``): where tp divides E the
 layer is expert-parallel (``_moe_ep``), and builds the reference's static
@@ -45,7 +68,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import shardctx
+from repro_torch.kernels import moe_grouped
 from repro_torch.kernels._build import CallSpan, host_syncs, spans
+from .attention import needs_grad
 from .blocks import Params, _init, swiglu, swiglu_init
 
 
@@ -351,18 +376,33 @@ def _stationary_pick(p: Params, x: torch.Tensor, r: Routing, ep,
     return out.view(R, S, d)
 
 
-def dispatch(r: Routing, x: torch.Tensor, cfg: MoEConfig,
-             span: Optional[CallSpan] = None
-             ) -> Tuple[List[int], torch.Tensor, torch.Tensor]:
+class Dispatch(NamedTuple):
+    """``dispatch``'s tables for x (G, S, d) and K choices a token, on x's
+    device; n is the experts held. A (token, choice) pair is a row, G*S*K
+    of them, sorted by held expert."""
+    counts: torch.Tensor   # (n,) int64: the kept rows of each held expert
+    #: (n + 1,) int64: each held expert's first sorted row; [n] the held rows
+    offsets: torch.Tensor
+    token: torch.Tensor    # (G*S*K,) int64: the token of each sorted row
+    weight: torch.Tensor   # (G*S*K,) f32: its combine weight
+    inverse: torch.Tensor  # (G*S*K,) int64: each (token, choice)'s sorted row
+
+
+def dispatch(r: Routing, x: torch.Tensor, cfg: MoEConfig) -> Dispatch:
     """The (token, choice) pairs of ``r`` grouped by held expert, for x
-    (G, S, d): (the number of kept pairs of each held expert, the pairs'
-    tokens in expert order, their combine weights: f32 of the gates
-    rounded to x's dtype). A dropped pair, or one routed to an expert not
-    held, takes the key ``n`` (the experts held) and sorts last, past every
-    held expert's rows. The counts come to the host in one copy, the one
-    sync of a layer (``torch.bincount`` would add two on a CUDA tensor),
-    after every launch of the dispatch; a traced call's ``span`` enters
-    phase ``repro_torch.moe.sync`` for that wait."""
+    (G, S, d), every table built on x's device: nothing comes to the host,
+    so the call never waits for the device (``torch.bincount`` would sync
+    twice on a CUDA tensor; the counts are a ``scatter_add_``).
+
+    The routing is taken as it is: a kept pair routed to held expert e gets
+    the key e, a dropped one, or one routed to an expert not held, the key
+    ``n`` (the experts held), and a stable sort by key puts each expert's
+    rows together in token order, the unheld ones last. The combine weights
+    are the gates rounded to x's dtype, read as f32. From the counts: the
+    experts' exclusive offsets; from the sort, its inverse (each (token,
+    choice)'s sorted row), through which K6 combines a token's choices in
+    choice order. The loop reads the counts on the host (``held_counts``);
+    K6 reads the tables on the device."""
     G, S, _ = x.shape
     K = cfg.top_k
     first, n = cfg.held_range
@@ -372,11 +412,37 @@ def dispatch(r: Routing, x: torch.Tensor, cfg: MoEConfig,
     order = torch.argsort(key, stable=True)
     counts = torch.zeros(n + 1, dtype=key.dtype, device=key.device)
     counts = counts.scatter_add_(0, key, torch.ones_like(key))[:n]
-    token = torch.arange(G * S, device=x.device).repeat_interleave(K)[order]
+    offsets = F.pad(counts.cumsum(0), (1, 0))
+    inverse = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.shape[0], device=order.device))
     weight = r.gates.reshape(-1)[order].to(x.dtype).float()
-    if span is not None:
-        span.phase("repro_torch.moe.sync")
-    return counts.tolist(), token, weight
+    return Dispatch(counts, offsets, order // K, weight, inverse)
+
+
+def held_counts(d: Dispatch) -> List[int]:
+    """The held experts' row counts on the host: the loop's one wait on the
+    device a layer (one copy, after every launch of the dispatch)."""
+    return d.counts.tolist()
+
+
+def takes_k6(p: Params, x: torch.Tensor) -> bool:
+    """Whether the layer runs its held experts by the grouped path (K6) for
+    x and the layer's weights, else by the loop: x and the held experts'
+    stacks must be plain (no DTensor) bf16 CUDA tensors, the stacks
+    contiguous, K6's tiles must divide d and f (``moe_grouped.fits``), and
+    no gradient may have to pass through the layer (``needs_grad`` of x,
+    the router, the stacks and the shared expert: K6 writes a fresh tensor
+    with no backward). Decided from the inputs alone; no setting chooses
+    the path."""
+    stacks = (p["wg"], p["wu"], p["wd"])
+    ts = (x, *stacks)
+    shared = ([p["shared"][k] for k in ("wg", "wu", "wd")]
+              if "shared" in p else [])
+    return (not any(shardctx.is_dtensor(t) for t in ts)
+            and all(t.dtype == torch.bfloat16 and t.is_cuda for t in ts)
+            and all(t.is_contiguous() for t in stacks)
+            and moe_grouped.fits(x.shape[-1], p["wg"].shape[-1])
+            and not needs_grad(x, p["router"], *stacks, *shared))
 
 
 def _moe_stationary(p: Params, x, cfg: MoEConfig):
@@ -412,44 +478,67 @@ def _moe_groups(p: Params, x: torch.Tensor, cfg: MoEConfig,
     (G, S, d), the choices routed to each expert (E,) f32, the router's
     probabilities summed over the tokens (E,)). A profiler that records
     sees it in phases, ``repro_torch.moe.route`` (the router and the
-    dispatch's launches), ``repro_torch.moe.sync`` (the host's wait for the
-    held experts' counts) and ``repro_torch.moe.experts`` (the rest), and
-    the layer's counters are kept (``_count``)."""
+    dispatch's launches), on the loop ``repro_torch.moe.sync`` (the host's
+    wait for the held experts' counts), and ``repro_torch.moe.experts`` (the
+    rest), and the layer's counters are kept (``_count``)."""
     span = spans.begin("repro_torch.moe.route")
     if span is None:
         return _moe_held(p, x, cfg, layout)[:3]
     with host_syncs(x.device) as syncs:
-        out, routed, prob, rows = _moe_held(p, x, cfg, layout, span)
+        out, routed, prob, counts, grouped = _moe_held(p, x, cfg, layout,
+                                                       span)
         span.end()
-    _count(rows, syncs[0])
+    _count(counts, syncs[0], grouped)
     return out, routed, prob
 
 
 def _moe_held(p: Params, x: torch.Tensor, cfg: MoEConfig, layout: str,
-              span: Optional[CallSpan] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                         List[int]]:
+              span: Optional[CallSpan] = None):
     """The layer on dispatch groups x (G, S, d): (out (G, S, d), the
     choices routed to each expert (E,) f32, the router's probabilities
-    summed over the tokens (E,), the rows each held expert got);
-    ``layout`` is recorded in the routing. Only the held experts run
-    (``cfg.held``; all by default), each on the rows routed to it.
+    summed over the tokens (E,), the rows each held expert got (n,) on x's
+    device, whether K6 ran); ``layout`` is recorded in the routing. Only the
+    held experts run (``cfg.held``; all by default), each on the rows routed
+    to it: by K6 where ``takes_k6``, else by the loop."""
+    G, S, d = x.shape
+    r = _route(p, x, cfg, layout)
+    dsp = dispatch(r, x, cfg)
+    xf = x.reshape(G * S, d)
+    grouped = takes_k6(p, x)
+    if grouped:
+        if span is not None:
+            span.phase("repro_torch.moe.experts")
+        shared = (swiglu(p["shared"], xf) if cfg.shared_expert else None)
+        out = moe_grouped.moe_grouped(
+            xf.contiguous(), p["wg"], p["wu"], p["wd"], dsp.token,
+            dsp.weight, dsp.counts, dsp.offsets, dsp.inverse, cfg.top_k,
+            shared).reshape(G, S, d)
+    else:
+        if span is not None:
+            span.phase("repro_torch.moe.sync")
+        counts = held_counts(dsp)
+        if span is not None:
+            span.phase("repro_torch.moe.experts")
+        out = _experts_loop(p, xf, dsp, counts).reshape(G, S, d)
+        if cfg.shared_expert:
+            out = out + swiglu(p["shared"], x)
+    return (out, *_stats(r, cfg.n_experts), dsp.counts, grouped)
+
+
+def _experts_loop(p: Params, xf: torch.Tensor, dsp: Dispatch,
+                  counts: List[int]) -> torch.Tensor:
+    """The held experts one at a time on x's rows xf (G*S, d), ``counts``
+    the rows of each on the host: (G*S, d) in x's dtype. K6's plain
+    version.
 
     The combine weights are the gates rounded to x's dtype, as the
     reference's ``combine.astype(x.dtype)``; the weighted expert outputs
-    are summed in f32 and rounded to x's dtype once. x is a plain tensor;
+    are summed in f32 and rounded to x's dtype once. xf is a plain tensor;
     the expert weights may be DTensors where they lie (``_moe_stationary``):
     each expert's tokens then count as replicated on their mesh, and its
-    output comes back whole (an all-gather of n x d).
-    """
-    G, S, d = x.shape
-    E = cfg.n_experts
-    r = _route(p, x, cfg, layout)
-    xf = x.reshape(G * S, d)
-    counts, token, weight = dispatch(r, x, cfg, span)
-    if span is not None:
-        span.phase("repro_torch.moe.experts")
-    out = torch.zeros((G * S, d), dtype=torch.float32, device=x.device)
+    output comes back whole (an all-gather of n x d)."""
+    out = torch.zeros(xf.shape, dtype=torch.float32, device=xf.device)
+    token, weight = dsp.token, dsp.weight
     start = 0
     for e, n in enumerate(counts):
         if n == 0:
@@ -457,26 +546,30 @@ def _moe_held(p: Params, x: torch.Tensor, cfg: MoEConfig, layout: str,
         tok = token[start:start + n]
         xe = shardctx.as_dtensor(xf[tok], p["wg"])
         h = (F.silu(shardctx.matmul(xe, shardctx.expert(p["wg"], e)
-                                    .to(x.dtype)))
-             * shardctx.matmul(xe, shardctx.expert(p["wu"], e).to(x.dtype)))
-        ye = shardctx.matmul(h, shardctx.expert(p["wd"], e).to(x.dtype))
+                                    .to(xf.dtype)))
+             * shardctx.matmul(xe, shardctx.expert(p["wu"], e).to(xf.dtype)))
+        ye = shardctx.matmul(h, shardctx.expert(p["wd"], e).to(xf.dtype))
         if shardctx.is_dtensor(ye):
             ye = ye.full_tensor()
         out.index_add_(0, tok, ye.float() * weight[start:start + n, None])
         start += n
-    out = out.to(x.dtype).reshape(G, S, d)
-    if cfg.shared_expert:
-        out = out + swiglu(p["shared"], x)
-    return (out, *_stats(r, E), counts)
+    return out.to(xf.dtype)
 
 
-def _count(rows: List[int], syncs: int) -> None:
+def _count(counts: torch.Tensor, syncs: int, grouped: bool) -> None:
     """A traced layer's counters: the host's waits on the device that the
-    layer made (``host_syncs``), the rows its held experts got, and their
+    layer made (``host_syncs``), whether K6 ran (1) or the loop (0), and,
+    read from ``counts`` only when the counters are (``count_later``, so
+    the layer waits for nothing), the rows its held experts got and their
     largest over their mean."""
     spans.count("repro_torch.moe.syncs", syncs)
+    spans.count("repro_torch.moe.grouped", int(grouped))
+    spans.count_later(counts, _fold_rows)
+
+
+def _fold_rows(rows: List[int]):
     total = sum(rows)
-    spans.count("repro_torch.moe.rows", total)
+    yield "repro_torch.moe.rows", total
     if total:
-        spans.count("repro_torch.moe.load_max_over_mean",
-                    max(rows) * len(rows) / total)
+        yield ("repro_torch.moe.load_max_over_mean",
+               max(rows) * len(rows) / total)

@@ -4,7 +4,8 @@ the CPU, on reduced DeepSeek-V2: ``repro_torch.prefill`` (a call of
 ``repro_torch.moe.route``, ``repro_torch.moe.sync`` and
 ``repro_torch.moe.experts`` (one each a MoE layer, in turn), and the MoE's
 counters (the host's waits on the device, counted by ``_build.host_syncs``;
-the rows its held experts got, their largest over their mean). On the CPU
+whether the grouped kernel K6 ran; the rows its held experts got, their
+largest over their mean, read from the device only when the counters are). On the CPU
 nothing waits on a device, so the sync counter reads 0 there; the
 ``cuda``-marked tests read it on the card.
 
@@ -30,8 +31,8 @@ LM_SPANS = ("repro_torch.prefill", "repro_torch.mla",
             "repro_torch.moe.route", "repro_torch.moe.sync",
             "repro_torch.moe.experts")
 MOE_PHASES = LM_SPANS[2:]
-COUNTERS = ("repro_torch.moe.syncs", "repro_torch.moe.rows",
-            "repro_torch.moe.load_max_over_mean")
+COUNTERS = ("repro_torch.moe.syncs", "repro_torch.moe.grouped",
+            "repro_torch.moe.rows", "repro_torch.moe.load_max_over_mean")
 
 
 class _Counting:
@@ -136,6 +137,8 @@ def test_a_profiled_prefill_nests_its_spans_and_counts_its_moe():
     counts = rec.counts()
     assert set(counts) == set(COUNTERS)
     assert counts["repro_torch.moe.syncs"] == (cfg.n_groups, 0)
+    # CPU tensors take the loop, not K6
+    assert counts["repro_torch.moe.grouped"] == (cfg.n_groups, 0)
     assert counts["repro_torch.moe.rows"] == (cfg.n_groups,
                                               int(sum(rows)))
     n_ratio, total = counts["repro_torch.moe.load_max_over_mean"]
